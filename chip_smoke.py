@@ -6,13 +6,25 @@ Run from the root of a checkout, on a machine with an NVIDIA card:
   python3 chip_smoke.py
 
 Phase 0 builds the CUDA kernels from ``geomx_tpu_torch/ops/csrc`` with
-nvcc. Phase 1 holds each kernel (FlashAttention-2 forward, dQ, dK/dV)
-against its plain PyTorch version on the card, at the transformer
-slice's shape and a few others, and times kernel, plain version,
-``scaled_dot_product_attention`` (as a yardstick only) and the bound.
-Phase 2 trains the 59M transformer (dim 512, depth 8, heads 8, vocab
-32768, seq 512, batch 8, bf16) through ``DeviceResidentTrainer`` on the
-local kv store and checks that every step went through the kernels.
+nvcc, one process per source, all started together. Phase 1 holds each
+FlashAttention-2 kernel (forward, dQ, dK/dV) against its plain PyTorch
+version on the card, at the transformer slice's shape and a few others,
+and times kernel, plain version, ``scaled_dot_product_attention`` (as a
+yardstick only) and the bound. Phase 2 trains the 59M transformer (dim
+512, depth 8, heads 8, vocab 32768, seq 512, batch 8, bf16) through
+``DeviceResidentTrainer`` on the local kv store and checks that every
+step went through the kernels.
+
+Phase 3 is the intra-party tier: 3a holds the 2-bit quantize kernel bit
+for bit against its plain version (up to the transformer's full
+parameter count, and at the quantized ring's strided shape) and times
+both beside the bound; 3b runs the quantized ring all-reduce of a 2-rank
+party for every codec, checks the byte gates and the ring on the card
+against the same ring on CPU tensors, bit for bit; 3c is the 200-round
+convergence probe of the JAX package's bench; 3d trains the 59M
+transformer as a 2-rank party, 5 steps of local grads, one 2-bit ring
+over the flattened gradient and SGD, and checks every step's launches
+and step 1's ring against its CPU replay.
 
 Exits non-zero without a card, outside a checkout, or when any check
 fails. The line before the last is the kernel table as JSON; the last is
@@ -38,6 +50,17 @@ KERNELS = {   # launch-count key -> (name, TPU kernel it replaces)
     "dq": ("flash_bwd_dq", "geomx_tpu/ops/flash_attention.py:155"),
     "dkv": ("flash_bwd_dkv", "geomx_tpu/ops/flash_attention.py:207"),
 }
+TWO_BIT = ("two_bit_quantize", "geomx_tpu_torch/ops/csrc/two_bit.cu",
+           "geomx_tpu/ops/__init__.py:161")
+TWO_BIT_BYTES = 12.25      # per element: read grad + residual, write
+#                            residual + a quarter of a code byte
+MESH_CODECS = ("none", "int8", "2bit", "fp16")
+MESH_QUANT_PARITY_TOL = 5e-4        # bench.py's gate for int8 vs none
+PARTY, PARTY_LR = 2, 0.05           # phase 3d: ranks, SGD step
+# phase 3d's 2-bit threshold: the config default 0.5 would code nothing
+# at this gradient scale; this one codes about a quarter of step 1's
+# coordinates (the script prints the share and fails below 1%)
+PARTY_THRESHOLD = 1e-4
 
 
 def fail(msg):
@@ -252,20 +275,22 @@ def phase2(torch, np, fa):
           f"{ref_loss:.6f}: rel diff {rel:.3e}", flush=True)
     if rel > 2e-2:
         fail(f"step-1 loss differs from the plain-attention run by {rel}")
-    profile_round(torch, tr, batches[0])
-    return launches
+    profile_round(torch, lambda: tr.step_timed(batches[0], None)[1],
+                  "profile")
+    return launches, n_params
 
 
-def profile_round(torch, tr, toks):
+def profile_round(torch, run, tag):
     """One more round under torch.profiler: device time by kernel and the
-    device's busy share of the round (profiler overhead included)."""
+    device's busy share of the round (profiler overhead included).
+    ``run()`` drives the round and returns its phase split in ms."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        _loss, phases = tr.step_timed(toks, None)
+        phases = run()
         wall = (time.perf_counter() - t) * 1e3
     rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
                    for e in prof.key_averages()
@@ -273,15 +298,267 @@ def profile_round(torch, tr, toks):
                    and e.self_device_time_total > 0), reverse=True)
     busy = sum(r[0] for r in rows)
     if not rows:
-        print("[profile] device time not measured: the profiler saw no "
+        print(f"[{tag}] device time not measured: the profiler saw no "
               "device activity", flush=True)
         return
-    print(f"[profile] round wall {wall:.3f} ms, device busy {busy:.3f} ms "
-          f"({100 * busy / wall:.1f}%), compute phase "
-          f"{phases['compute_ms']:.3f} ms", flush=True)
+    print(f"[{tag}] round wall {wall:.3f} ms, device busy {busy:.3f} ms "
+          f"({100 * busy / wall:.1f}%), phases "
+          f"{ {k: round(v, 3) for k, v in phases.items()} }", flush=True)
     for ms, n, name in rows[:15]:
-        print(f"[profile] {ms:9.3f} ms {100 * ms / busy:5.1f}% x{n:<5d} "
+        print(f"[{tag}] {ms:9.3f} ms {100 * ms / busy:5.1f}% x{n:<5d} "
               f"{name[:100]}", flush=True)
+
+
+def two_bit_bound(n):
+    """(bound_ms, bytes) of the fused 2-bit quantize over n elements:
+    bytes bound it, it does no tensor-core work."""
+    nbytes = TWO_BIT_BYTES * n
+    return nbytes / PEAK_BYTES * 1e3, nbytes
+
+
+def phase3a(torch, tb, pmesh, n_params):
+    """The 2-bit kernel against its plain version, bit for bit, then
+    timed; returns (ms, plain ms, bound ms) at the ring's full-width
+    shape."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def check(what, got, want):
+        for a, b in zip(got, want):
+            if not torch.equal(a, b):
+                fail(f"two_bit {what}: kernel != plain version "
+                     f"({int((a != b).sum())} elements differ)")
+
+    for n in (1, 3, 4, 1001, 1 << 20, n_params):
+        grad = torch.randn(n, device="cuda", generator=g)
+        res = torch.randn(n, device="cuda", generator=g) * 0.3
+        for thr in (0.5, 0.01):
+            check(f"n={n} thr={thr}", tb.two_bit_quantize(grad, res, thr),
+                  tb.two_bit_quantize_plain(grad, res, thr))
+        if n >= 1 << 20:
+            bnd, nbytes = two_bit_bound(n)
+            ms = time_ms(lambda: tb.two_bit_quantize(grad, res, 0.01), 50)
+            plain = time_ms(lambda: tb.two_bit_quantize_plain(grad, res,
+                                                              0.01), 10)
+            print(f"[phase3a] two_bit n={n}: kernel_ms {ms:.4f} plain_ms "
+                  f"{plain:.4f} library_ms none bound_ms {bnd:.4f} (bytes: "
+                  f"{nbytes:.0f})", flush=True)
+        del grad, res
+    # the ring's form: (P, m) rows, residual slot in and out as strided
+    # views of (P, P, m) state; m = 1001 takes the scalar path
+    for P, m in ((3, 1001), (PARTY, pmesh.ring_chunk_layout(n_params, PARTY,
+                                                            4)[0])):
+        grad = torch.randn(P, m, device="cuda", generator=g)
+        res = torch.randn(P, P, m, device="cuda", generator=g) * 0.3
+        out = torch.empty_like(res)
+        want = tb.two_bit_quantize_plain(grad, res[:, 1], PARTY_THRESHOLD)
+        packed, _ = tb.two_bit_quantize(grad, res[:, 1], PARTY_THRESHOLD,
+                                        out_residual=out[:, 1])
+        check(f"rows {P}x{m} strided", (packed, out[:, 1]), want)
+
+        def kernel():
+            tb.two_bit_quantize(grad, res[:, 1], PARTY_THRESHOLD,
+                                out_residual=out[:, 1])
+
+        ms = time_ms(kernel, 50)
+        plain = time_ms(lambda: tb.two_bit_quantize_plain(
+            grad, res[:, 1], PARTY_THRESHOLD), 10)
+        bnd, nbytes = two_bit_bound(P * m)
+        print(f"[phase3a] two_bit rows {P}x{m} strided (the ring's shape): "
+              f"kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms none "
+              f"bound_ms {bnd:.4f} (bytes: {nbytes:.0f})", flush=True)
+    print("[phase3a] two_bit: kernel == plain version bit for bit at n in "
+          f"(1, 3, 4, 1001, 2^20, {n_params}), thr 0.5 / 0.01, and on "
+          "strided rows", flush=True)
+    return ms, plain, bnd
+
+
+def phase3b(torch, np, qc, pmesh):
+    """bench.py's bench_mesh_quant on the card: a 2-rank party, 2^20
+    elements, every codec; the card's ring against its CPU replay."""
+    n, reps = 1 << 20, 30
+    card, host = (pmesh.make_party_mesh(2, d) for d in ("cuda", "cpu"))
+    g_stack = torch.as_tensor(
+        np.random.RandomState(0).randn(2, n).astype(np.float32),
+        device="cuda")
+    codecs = {}
+    for codec in MESH_CODECS:
+        red = qc.QuantRingReducer(card, codec, n, mean=True)
+        red.reduce(g_stack)
+        torch.cuda.synchronize()
+        samples = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            red.reduce(g_stack)
+            torch.cuda.synchronize()
+            samples.append((time.perf_counter() - t0) * 1e3)
+        codecs[codec] = {"mesh_bytes_per_round": red.wire_bytes_per_round(),
+                         "intra_party_ms": float(np.median(samples))}
+        # 3 rounds with the residual carried, card against CPU tensors
+        reds = [qc.QuantRingReducer(m, codec, n, mean=True)
+                for m in (card, host)]
+        rng = np.random.RandomState(1)
+        for rnd in range(3):
+            xs = torch.as_tensor(rng.randn(2, n).astype(np.float32))
+            y_card = reds[0].reduce(xs.cuda())
+            y_host = reds[1].reduce(xs)
+            if not all(torch.equal(y_card[r], y_card[0]) for r in range(2)):
+                fail(f"ring {codec} round {rnd}: rank rows differ")
+            if not torch.equal(y_card.cpu(), y_host) or not torch.equal(
+                    reds[0]._res.cpu(), reds[1]._res):
+                fail(f"ring {codec} round {rnd}: card != CPU replay")
+        print(f"[phase3b] {codec}: {codecs[codec]}; card == CPU replay bit "
+              "for bit over 3 rounds, rank rows identical", flush=True)
+    fp32 = codecs["none"]["mesh_bytes_per_round"]
+    red_int8 = fp32 / codecs["int8"]["mesh_bytes_per_round"]
+    red_2bit = fp32 / codecs["2bit"]["mesh_bytes_per_round"]
+    print(f"[phase3b] reduction vs fp32: int8 {red_int8:.2f}x, 2bit "
+          f"{red_2bit:.2f}x", flush=True)
+    if red_int8 < 3.5 or red_2bit < 14.0:
+        fail(f"byte gates: int8 {red_int8} < 3.5 or 2bit {red_2bit} < 14")
+
+
+def mesh_quant_parity(torch, np, qc, pmesh, codec, rounds=200, d=512,
+                      n_samples=256, lr=0.1, ranks=4):
+    """bench.py's _mesh_quant_parity through the ring on the card: 4-rank
+    linear regression, the ranks' local-shard gradients reduced (mean),
+    SGD on the replicated output; returns the final mean squared error."""
+    red = qc.QuantRingReducer(pmesh.make_party_mesh(ranks, "cuda"), codec, d,
+                              mean=True, threshold=0.01)
+    w_true = (np.random.RandomState(7).randn(d)
+              / np.sqrt(d)).astype(np.float32)
+    rng = np.random.RandomState(42)
+    X = rng.randn(n_samples, d).astype(np.float32)
+    y = X @ w_true
+    per = n_samples // ranks
+    Xs = X.reshape(ranks, per, d)
+    ys = y.reshape(ranks, per)
+    w = np.zeros(d, np.float32)
+    for _ in range(rounds):
+        g = np.stack([(2.0 / per) * Xs[r].T @ (Xs[r] @ w - ys[r])
+                      for r in range(ranks)]).astype(np.float32)
+        w -= lr * red.reduce(torch.as_tensor(g, device="cuda"))[0].cpu().numpy()
+    r = X @ w - y
+    return float(np.mean(r * r))
+
+
+def phase3c(torch, np, qc, pmesh):
+    losses = {c: mesh_quant_parity(torch, np, qc, pmesh, c)
+              for c in MESH_CODECS}
+    delta = losses["int8"] - losses["none"]
+    print(f"[phase3c] 200-round probe final loss {losses}; int8 - none "
+          f"{delta:.3e} (tol {MESH_QUANT_PARITY_TOL})", flush=True)
+    if not all(math.isfinite(v) for v in losses.values()):
+        fail(f"non-finite probe loss: {losses}")
+    if delta > MESH_QUANT_PARITY_TOL:
+        fail(f"int8 probe loss {losses['int8']} not within "
+             f"{MESH_QUANT_PARITY_TOL} of none's {losses['none']}")
+
+
+def phase3d(torch, np, fa, tb, qc, pmesh):
+    """The 59M transformer as a 2-rank party: local grads through the
+    flash kernels, the flattened (2, N) gradient through one 2-bit ring
+    (mean), SGD on the replicated parameters. Returns the two_bit
+    launches of the STEPS counted steps."""
+    from geomx_tpu_torch.examples.transformer_bsc_device import synth_batch
+    from geomx_tpu_torch.models.transformer import (Transformer,
+                                                    make_attention)
+    from geomx_tpu_torch.parallel.train_step import DataParallelTrainer
+
+    t = time.perf_counter()
+    mesh = pmesh.make_party_mesh(PARTY, "cuda")
+    model = Transformer(vocab=MODEL["vocab"], dim=MODEL["dim"],
+                        depth=MODEL["depth"], heads=MODEL["heads"],
+                        max_len=MODEL["seq_len"],
+                        attn_fn=make_attention("auto"),
+                        compute_dtype=torch.bfloat16,
+                        generator=torch.Generator().manual_seed(42))
+    tr = DataParallelTrainer(model, torch.optim.SGD(model.parameters(),
+                                                    lr=PARTY_LR),
+                             mesh, num_classes=MODEL["vocab"])
+    sizes = [p.numel() for p in tr.params]
+    n = sum(sizes)
+    rng = np.random.default_rng(4321)
+    batches = [synth_batch(rng, BATCH, MODEL["seq_len"], MODEL["vocab"])
+               for _ in range(STEPS + 1)]
+
+    def step(toks, red):
+        t0 = time.perf_counter()
+        losses, grads = tr.local_grads(toks[:, :-1], toks[:, 1:])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        stack = torch.cat([g.reshape(PARTY, -1) for g in grads], dim=1)
+        del grads
+        out = red.reduce(stack)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for p, g in zip(tr.params, out[0].split(sizes)):
+            p.grad = g.view(p.shape)
+        tr.optimizer.step()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        ms = {"local_grads_ms": (t1 - t0) * 1e3, "ring_ms": (t2 - t1) * 1e3,
+              "apply_ms": (t3 - t2) * 1e3}
+        return losses.cpu().tolist(), ms, stack, out
+
+    # warm-up on a throwaway reducer: the counted run starts at zero
+    # residual, as its CPU replay does
+    step(batches[STEPS], qc.QuantRingReducer(
+        mesh, "2bit", n, mean=True, threshold=PARTY_THRESHOLD))
+    red = qc.QuantRingReducer(mesh, "2bit", n, mean=True,
+                              threshold=PARTY_THRESHOLD)
+    print(f"[phase3d] {n} params, party of {PARTY} on one card, 2-bit "
+          f"threshold {PARTY_THRESHOLD}, set-up + warm-up "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+
+    counters = [fa.LAUNCHES, tb.LAUNCHES]
+    for c in counters:
+        for key in c:
+            c[key] = 0
+    losses, per_step, launches = [], [], []
+    first = None
+    for toks in batches[:STEPS]:
+        before = {k: v for c in counters for k, v in c.items()}
+        loss, ms, stack, out = step(toks, red)
+        launches.append({k: v - before[k] for c in counters
+                         for k, v in c.items()})
+        losses.append(loss)
+        per_step.append(ms)
+        if first is None:
+            same_rows = all(torch.equal(out[r], out[0]) for r in range(PARTY))
+            first = (stack.cpu(), out.cpu(), same_rows)
+        del stack, out
+    total = dict(tb.LAUNCHES)
+
+    print(f"[phase3d] per-rank losses {losses}", flush=True)
+    for i, ms in enumerate(per_step):
+        print(f"[phase3d] step {i + 1}: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in ms.items())
+            + f", total_ms {sum(ms.values()):.3f}", flush=True)
+    print(f"[phase3d] launches per step {launches}", flush=True)
+    if not all(math.isfinite(v) for l in losses for v in l):
+        fail(f"non-finite loss: {losses}")
+    want = {"two_bit": 2, **{k: PARTY * MODEL["depth"] for k in KERNELS}}
+    for i, counts in enumerate(launches):
+        if counts != want:
+            fail(f"step {i + 1}: kernel launches {counts}, expected {want}")
+    if not all(bool(torch.isfinite(p).all()) for p in tr.params):
+        fail("non-finite parameters after training")
+
+    stack, out, same_rows = first
+    share = float((out[0] != 0).to(torch.float64).mean())
+    replay = qc.QuantRingReducer(pmesh.make_party_mesh(PARTY, "cpu"), "2bit",
+                                 n, mean=True, threshold=PARTY_THRESHOLD)
+    if not same_rows:
+        fail("step 1: the ranks' rows of the ring output differ")
+    if not torch.equal(replay.reduce(stack), out):
+        fail("step 1: the ring on the card != its CPU replay")
+    print(f"[phase3d] step 1: ring output == CPU replay of the same "
+          f"({PARTY}, {n}) stack bit for bit, rank rows identical; nonzero "
+          f"2-bit codes {100 * share:.2f}%", flush=True)
+    if share < 0.01:
+        fail(f"threshold {PARTY_THRESHOLD} codes only {share} of step 1")
+    profile_round(torch, lambda: step(batches[0], red)[1], "phase3d profile")
+    return total["two_bit"]
 
 
 def main():
@@ -300,6 +577,9 @@ def main():
 
     from geomx_tpu_torch.ops import _cuda
     from geomx_tpu_torch.ops import flash_attention as fa
+    from geomx_tpu_torch.ops import two_bit as tb
+    from geomx_tpu_torch.parallel import mesh as pmesh
+    from geomx_tpu_torch.parallel import quant_collectives as qc
 
     # phase 0: the card, the kernels' build, the float32 matmul mode
     card = card_line()
@@ -308,7 +588,7 @@ def main():
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}", flush=True)
     t = time.perf_counter()
-    logs = _cuda.build(["flash_attention"])
+    logs = _cuda.build(["flash_attention", "two_bit"])
     print(f"[phase0] built {len(logs)} CUDA source(s) for sm_90a in "
           f"{time.perf_counter() - t:.1f} s", flush=True)
     for log in logs:
@@ -322,7 +602,11 @@ def main():
           f"{torch.backends.cudnn.allow_tf32}", flush=True)
 
     errs, times, library, bnd = phase1(torch, fa)
-    launches = phase2(torch, np, fa)
+    launches, n_params = phase2(torch, np, fa)
+    tb_ms, tb_plain, tb_bound = phase3a(torch, tb, pmesh, n_params)
+    phase3b(torch, np, qc, pmesh)
+    phase3c(torch, np, qc, pmesh)
+    tb_launches = phase3d(torch, np, fa, tb, qc, pmesh)
 
     table = [{
         "name": name, "route": "cuda", "source": SOURCE, "replaces": where,
@@ -331,6 +615,11 @@ def main():
         "bound_ms": bnd[key][0], "bound_by": bnd[key][1],
         "library_ms": library[key],
     } for key, (name, where) in KERNELS.items()]
+    table.append({
+        "name": TWO_BIT[0], "route": "cuda", "source": TWO_BIT[1],
+        "replaces": TWO_BIT[2], "launches": tb_launches,
+        "max_abs_err": 0.0, "ms": tb_ms, "plain_ms": tb_plain,
+        "bound_ms": tb_bound, "bound_by": "bytes", "library_ms": None})
     print(card, flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,15 +5,20 @@ both the same inputs. It imports torch and never jax, flax or geomx_tpu.
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``device="cpu"``); without a card, ``device=None`` raises.
 
-Ported so far (slice 1): the single-process kv store, the transformer
-with FlashAttention-2 as CUDA kernels, and the device-resident BSC
-trainer. The HiPS host layers, and with them the server-role bootstrap
-that ``import geomx_tpu`` performs, come in later slices (ROADMAP).
+Ported so far: the single-process kv store, the transformer with
+FlashAttention-2 as CUDA kernels, and the device-resident BSC trainer
+(slice 1); the WAN codecs (``compression``), the device compression ops
+with the 2-bit quantize as a CUDA kernel (``ops``), and the intra-party
+tier's quantized ring all-reduce and ``DataParallelTrainer``
+(``parallel``) (slice 2). The HiPS host layers, and with them the
+server-role bootstrap that ``import geomx_tpu`` performs, come in later
+slices (ROADMAP).
 """
 
 __version__ = "0.1.0"
 
 from geomx_tpu_torch import kvstore as kv  # noqa: F401  (mirrors mx.kv)
+from geomx_tpu_torch import compression  # noqa: F401
 from geomx_tpu_torch import models  # noqa: F401
 from geomx_tpu_torch import ops  # noqa: F401
 from geomx_tpu_torch.kvstore import create  # noqa: F401

@@ -38,15 +38,9 @@ import numpy as np
 import torch
 
 from geomx_tpu_torch._device import resolve_device
+from geomx_tpu_torch.ops import _fma
 
 __all__ = ["DeviceResidentTrainer"]
-
-
-def _fma(a: torch.Tensor, b: float, c: torch.Tensor) -> torch.Tensor:
-    """fp32 ``a * b + c`` rounded once (a fused multiply-add): the fp32
-    product is exact in fp64, and the fp64 sum rounds to fp32."""
-    b32 = float(np.float32(b))
-    return (a.to(torch.float64) * b32 + c.to(torch.float64)).to(torch.float32)
 
 
 class DeviceResidentTrainer:

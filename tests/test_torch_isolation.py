@@ -31,6 +31,12 @@ def test_import_leaves_jax_out_of_the_process():
         "import geomx_tpu_torch\n"
         "import geomx_tpu_torch.examples.transformer_bsc_device\n"
         "import geomx_tpu_torch.ops.flash_attention\n"
+        "import geomx_tpu_torch.ops.two_bit\n"
+        "import geomx_tpu_torch.compression\n"
+        "import geomx_tpu_torch.compression.device\n"
+        "import geomx_tpu_torch.parallel\n"
+        "import geomx_tpu_torch.parallel.quant_collectives\n"
+        "import geomx_tpu_torch.parallel.train_step\n"
         f"print(sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r}))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
