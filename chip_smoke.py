@@ -6,14 +6,22 @@ Run from the root of a checkout, on a machine with an NVIDIA card:
   python3 chip_smoke.py
 
 Phase 0 builds the CUDA kernels from ``geomx_tpu_torch/ops/csrc`` with
-nvcc, one process per source, all started together. Phase 1 holds each
+nvcc, one process per source, all started together, prints each
+kernel's registers and spills, and counts the tensor-core instructions
+(HMMA, HGMMA) in each kernel's SASS where ``cuobjdump`` exists, failing
+if a bf16 tensor-core kernel has none. Phase 1 holds each
 FlashAttention-2 kernel (forward, dQ, dK/dV) against its plain PyTorch
-version on the card, at the transformer slice's shape and a few others,
-and times kernel, plain version, ``scaled_dot_product_attention`` (as a
-yardstick only) and the bound. Phase 2 trains the 59M transformer (dim
-512, depth 8, heads 8, vocab 32768, seq 512, batch 8, bf16) through
-``DeviceResidentTrainer`` on the local kv store and checks that every
-step went through the kernels.
+version on the card, at the transformer slice's shape and a few others
+(head dims 32, 40, 128, the decode shape, q/k/v as views of a fused qkv
+projection), and times kernel, plain version,
+``scaled_dot_product_attention`` (as a yardstick only) and the bound:
+back-to-back calls under CUDA events (the wrapper's host work included)
+and the device time per launch under ``torch.profiler``, each kernel and
+SDPA's forward and backward in a window of its own. Phase 2 trains the
+59M transformer (dim 512, depth 8, heads 8, vocab 32768, seq 512, batch
+8, bf16) through ``DeviceResidentTrainer`` on the local kv store and
+checks that every step went through the kernels, and a profiled round
+through the bf16 tensor-core ones.
 
 Phase 3 is the intra-party tier: 3a holds the 2-bit quantize kernel bit
 for bit against its plain version (up to the transformer's full
@@ -34,6 +42,7 @@ fails. The line before the last is the kernel table as JSON; the last is
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -45,11 +54,18 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
 PEAK_BYTES = 3.35e12
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 SOURCE = "geomx_tpu_torch/ops/csrc/flash_attention.cu"
-KERNELS = {   # launch-count key -> (name, TPU kernel it replaces)
-    "fwd": ("flash_fwd", "geomx_tpu/ops/flash_attention.py:85"),
-    "dq": ("flash_bwd_dq", "geomx_tpu/ops/flash_attention.py:155"),
-    "dkv": ("flash_bwd_dkv", "geomx_tpu/ops/flash_attention.py:207"),
+KERNELS = {   # launch-count key -> (name, TPU kernel it replaces, the CUDA
+    #                              kernel bf16 runs, as the profiler names it)
+    "fwd": ("flash_fwd", "geomx_tpu/ops/flash_attention.py:85",
+            "geomx_fa_fwd_tc"),
+    "dq": ("flash_bwd_dq", "geomx_tpu/ops/flash_attention.py:155",
+           "flash_dq_kernel"),
+    "dkv": ("flash_bwd_dkv", "geomx_tpu/ops/flash_attention.py:207",
+            "geomx_fa_dkv_tc"),
 }
+# the bf16 kernels on the tensor cores: one instantiation per padded head dim
+TC_KERNELS = ("geomx_fa_fwd_tc", "geomx_fa_dkv_tc")
+PROFILE_REPS = 20           # calls per torch.profiler window
 TWO_BIT = ("two_bit_quantize", "geomx_tpu_torch/ops/csrc/two_bit.cu",
            "geomx_tpu/ops/__init__.py:161")
 TWO_BIT_BYTES = 12.25      # per element: read grad + residual, write
@@ -93,6 +109,69 @@ def time_ms(fn, reps, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(torch, fn, reps, match=None):
+    """Mean device ms per call of ``fn`` over ``reps`` calls in a
+    torch.profiler window of its own: the self device time of the kernels
+    it ran (those whose name holds ``match``, else all), summed, over
+    ``reps``. Returns (ms or None when the profiler saw no device time,
+    the kernels seen as "name xcount")."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, seen = 0.0, []
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA") \
+                or e.self_device_time_total <= 0:
+            continue
+        if match is not None and match not in e.key:
+            continue
+        total += e.self_device_time_total
+        seen.append(f"{e.key[:70]} x{e.count}")
+    return (total / 1e3 / reps if total > 0 else None), seen
+
+
+def shown(ms):
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def sass_check(_cuda, head_dims):
+    """Count HMMA / HGMMA instructions in each kernel's SASS of the flash
+    library; fail if a bf16 tensor-core kernel (every padded head dim)
+    has none. Without cuobjdump, say that it was not checked."""
+    tool = shutil.which("cuobjdump")
+    if tool is None:
+        home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+        cand = os.path.join(home, "bin", "cuobjdump")
+        tool = cand if os.path.exists(cand) else None
+    if tool is None:
+        print("[phase0] cuobjdump not found: tensor-core instructions not "
+              "checked", flush=True)
+        return
+    sass = subprocess.run([tool, "-sass", str(_cuda._target(
+        "flash_attention"))], capture_output=True, text=True, timeout=300,
+        check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            cur = line.split("Function :", 1)[1].strip()
+            counts[cur] = 0
+        elif cur is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[cur] += 1
+    for name, n in counts.items():
+        print(f"[phase0] SASS {n:4d} HMMA/HGMMA in {name}", flush=True)
+    for tc in TC_KERNELS:
+        found = [n for name, n in counts.items() if tc in name]
+        if len(found) != len(head_dims) or min(found) == 0:
+            fail(f"{tc}: tensor-core instructions per instantiation {found}, "
+                 f"expected {len(head_dims)} instantiations, none empty")
+
+
 def visible_pairs(Tq, Tk, causal):
     if not causal:
         return Tq * Tk
@@ -122,21 +201,47 @@ def bounds(B, Tq, Tk, H, D, causal, dtype):
 
 def phase1(torch, fa):
     """Each kernel against its plain version, then timed at the slice
-    shape; returns (errors, times, library times, bounds) by kernel."""
+    shape; returns (errors, times, library times, device times, library
+    device times, bounds) by kernel."""
     g = torch.Generator(device="cuda").manual_seed(0)
     B, T, H, D = SLICE["B"], SLICE["T"], SLICE["H"], SLICE["D"]
-    cases = [  # Tq, Tk, causal, dtype
-        (T, T, True, "bfloat16"), (T, T, True, "float32"),
-        (T, T, False, "bfloat16"), (64, T, True, "bfloat16")]
+    cases = [  # B, H, D, Tq, Tk, causal, dtype, q/k/v as fused-qkv views
+        (B, H, D, T, T, True, "bfloat16", False),
+        (B, H, D, T, T, True, "float32", False),
+        (B, H, D, T, T, False, "bfloat16", False),
+        (B, H, D, 64, T, True, "bfloat16", False),
+        (B, H, D, T, T, True, "bfloat16", True),
+        (2, 4, 32, T, T, True, "bfloat16", False),
+        (2, 4, 40, 65, 65, False, "bfloat16", False),
+        (2, 4, 128, T, T, True, "bfloat16", False),
+        (2, 4, 128, 64, T, True, "float32", False)]
     errs = {k: 0.0 for k in KERNELS}
     slice_inputs = None
-    for Tq, Tk, causal, dname in cases:
+    for Bc, Hc, Dc, Tq, Tk, causal, dname, fused in cases:
         dt = getattr(torch, dname)
-        q, k, v, do = (torch.randn(B, t, H, D, device="cuda", generator=g)
-                       .to(dt) for t in (Tq, Tk, Tk, Tq))
-        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
-        o = fa.flash_attention(qg, kg, vg, causal=causal)
+        if fused:   # the model's q, k, v: per-head views of one projection,
+            #         and the gradient taken through such views
+            qkv = torch.randn(Bc, Tq, 3 * Hc * Dc, device="cuda",
+                              generator=g).to(dt)
+            leaf = qkv.clone().requires_grad_()
+            q, k, v = (x.reshape(Bc, Tq, Hc, Dc)
+                       for x in qkv.split(Hc * Dc, dim=-1))
+            views = [x.reshape(Bc, Tq, Hc, Dc)
+                     for x in leaf.split(Hc * Dc, dim=-1)]
+            do = torch.randn(Bc, Tq, Hc, Dc, device="cuda",
+                             generator=g).to(dt)
+        else:
+            q, k, v, do = (torch.randn(Bc, t, Hc, Dc, device="cuda",
+                                       generator=g).to(dt)
+                           for t in (Tq, Tk, Tk, Tq))
+            views = [x.clone().requires_grad_() for x in (q, k, v)]
+        o = fa.flash_attention(*views, causal=causal)
         o.backward(do)
+        if fused:
+            grads = [x.reshape(Bc, Tq, Hc, Dc)
+                     for x in leaf.grad.split(Hc * Dc, dim=-1)]
+        else:
+            grads = [x.grad for x in views]
         _o2, lse = fa.flash_fwd(q, k, v, causal=causal)
         op, lp = fa.flash_fwd_plain(q, k, v, causal=causal)
         delta = (do.float() * op.float()).sum(-1).transpose(1, 2).contiguous()
@@ -144,13 +249,15 @@ def phase1(torch, fa):
         dkp, dvp = fa.flash_bwd_dkv_plain(q, k, v, do, lp, delta,
                                           causal=causal)
         torch.cuda.synchronize()
-        pairs = {"fwd": [(o, op), (lse, lp)], "dq": [(qg.grad, dqp)],
-                 "dkv": [(kg.grad, dkp), (vg.grad, dvp)]}
+        pairs = {"fwd": [(o, op), (lse, lp)], "dq": [(grads[0], dqp)],
+                 "dkv": [(grads[1], dkp), (grads[2], dvp)]}
+        what = (f"{dname} B={Bc} H={Hc} D={Dc} Tq={Tq} Tk={Tk} "
+                f"causal={causal}" + (" fused-qkv views" if fused else ""))
         line = []
         for kname, pp in pairs.items():
             for got, want in pp:
                 if not bool(torch.isfinite(got).all()):
-                    fail(f"{kname}: non-finite output")
+                    fail(f"{kname} {what}: non-finite output")
                 diff = (got.float() - want.float()).abs()
                 err = diff.max().item()
                 scale = want.float().abs().max().item()
@@ -158,53 +265,71 @@ def phase1(torch, fa):
                 # ulp is 0.031 for values in [4, 8)
                 bad = diff > TOL[dname] * (1 + want.float().abs())
                 if bool(bad.any()):
-                    fail(f"{kname} {dname} Tq={Tq} Tk={Tk} causal={causal}: "
-                         f"{int(bad.sum())} elements beyond atol = rtol = "
-                         f"{TOL[dname]} (max abs err {err})")
+                    fail(f"{kname} {what}: {int(bad.sum())} elements beyond "
+                         f"atol = rtol = {TOL[dname]} (max abs err {err})")
                 errs[kname] = max(errs[kname], err)
                 line.append(f"{kname} {err:.3e} (|ref| {scale:.3e})")
-        print(f"[phase1] {dname} Tq={Tq} Tk={Tk} causal={causal}: "
-              + ", ".join(line), flush=True)
-        if (Tq, Tk, causal, dname) == cases[0]:
+        print(f"[phase1] {what}: " + ", ".join(line), flush=True)
+        if slice_inputs is None:
             slice_inputs = (q, k, v, do, lp, delta)
 
     q, k, v, do, lse, delta = slice_inputs
     kw = dict(causal=True)
-    times = {
-        "fwd": (time_ms(lambda: fa.flash_fwd(q, k, v, **kw), 50),
-                time_ms(lambda: fa.flash_fwd_plain(q, k, v, **kw), 10)),
-        "dq": (time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta,
-                                               **kw), 50),
-               time_ms(lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta,
-                                                     **kw), 10)),
-        "dkv": (time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta,
-                                                 **kw), 50),
-                time_ms(lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse,
-                                                       delta, **kw), 10)),
+    calls = {
+        "fwd": (lambda: fa.flash_fwd(q, k, v, **kw),
+                lambda: fa.flash_fwd_plain(q, k, v, **kw)),
+        "dq": (lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+               lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw)),
+        "dkv": (lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw),
+                lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                               **kw)),
     }
+    times = {kname: (time_ms(kern, 50), time_ms(plain, 10))
+             for kname, (kern, plain) in calls.items()}
     # yardstick: PyTorch's fused attention on the same values, [B, H, T, D]
     F = torch.nn.functional
     ql, kl, vl = (x.transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v))
     dol = do.transpose(1, 2).contiguous()
-    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
-        ql, kl, vl, is_causal=True), 50)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
 
     def fwd_bwd():
-        out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
-        torch.autograd.grad(out, (ql, kl, vl), dol)
+        torch.autograd.grad(sdpa(), (ql, kl, vl), dol)
 
+    sdpa_fwd = time_ms(sdpa, 50)
     sdpa_bwd = time_ms(fwd_bwd, 50) - sdpa_fwd
     library = {"fwd": sdpa_fwd, "dq": sdpa_bwd, "dkv": sdpa_bwd}
+
+    # device time per launch, each in a profiler window of its own; SDPA's
+    # backward is the sum of its kernels, which compute dQ, dK, dV together
+    dev = {}
+    for kname, (kern, _plain) in calls.items():
+        dev[kname], seen = device_ms(torch, kern, PROFILE_REPS,
+                                     KERNELS[kname][2])
+        print(f"[phase1] device time {KERNELS[kname][0]}: "
+              f"{shown(dev[kname])} ms per launch ({seen})", flush=True)
+    out = sdpa()
+    lib_fwd, seen_f = device_ms(torch, sdpa, PROFILE_REPS)
+    lib_bwd, seen_b = device_ms(torch, lambda: torch.autograd.grad(
+        out, (ql, kl, vl), dol, retain_graph=True), PROFILE_REPS)
+    print(f"[phase1] device time SDPA forward: {shown(lib_fwd)} ms per call "
+          f"({seen_f})", flush=True)
+    print(f"[phase1] device time SDPA backward: {shown(lib_bwd)} ms per call "
+          f"({seen_b})", flush=True)
+    library_dev = {"fwd": lib_fwd, "dq": lib_bwd, "dkv": lib_bwd}
+
     bnd = bounds(SLICE["B"], SLICE["T"], SLICE["T"], SLICE["H"],
                  SLICE["D"], True, "bfloat16")
     for kname, (ms, plain) in times.items():
         print(f"[phase1] {KERNELS[kname][0]} at B8 T511 H8 D64 bf16 causal: "
-              f"kernel_ms {ms:.4f} plain_ms {plain:.4f} "
-              f"library_ms {library[kname]:.4f} bound_ms "
+              f"kernel_ms {ms:.4f} device_ms {shown(dev[kname])} plain_ms "
+              f"{plain:.4f} library_ms {library[kname]:.4f} "
+              f"library_device_ms {shown(library_dev[kname])} bound_ms "
               f"{bnd[kname][0]:.4f} ({bnd[kname][1]}: {bnd[kname][2]} bytes, "
               f"{bnd[kname][3]} flops)", flush=True)
-    return errs, times, library, bnd
+    return errs, times, library, dev, library_dev, bnd
 
 
 def phase2(torch, np, fa):
@@ -276,13 +401,14 @@ def phase2(torch, np, fa):
     if rel > 2e-2:
         fail(f"step-1 loss differs from the plain-attention run by {rel}")
     profile_round(torch, lambda: tr.step_timed(batches[0], None)[1],
-                  "profile")
+                  "profile", MODEL["depth"])
     return launches, n_params
 
 
-def profile_round(torch, run, tag):
+def profile_round(torch, run, tag, tc_launches):
     """One more round under torch.profiler: device time by kernel and the
-    device's busy share of the round (profiler overhead included).
+    device's busy share of the round (profiler overhead included), and a
+    check that each tensor-core flash kernel ran ``tc_launches`` times.
     ``run()`` drives the round and returns its phase split in ms."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -307,6 +433,14 @@ def profile_round(torch, run, tag):
     for ms, n, name in rows[:15]:
         print(f"[{tag}] {ms:9.3f} ms {100 * ms / busy:5.1f}% x{n:<5d} "
               f"{name[:100]}", flush=True)
+    for tc in TC_KERNELS:
+        ms = sum(r[0] for r in rows if tc in r[2])
+        n = sum(r[1] for r in rows if tc in r[2])
+        print(f"[{tag}] {tc}: {n} launches, {ms:.3f} ms", flush=True)
+        if n != tc_launches:
+            fail(f"{tag}: {tc} ran {n} times in the round, expected "
+                 f"{tc_launches}: the bf16 path must run the tensor-core "
+                 "kernels")
 
 
 def two_bit_bound(n):
@@ -318,8 +452,8 @@ def two_bit_bound(n):
 
 def phase3a(torch, tb, pmesh, n_params):
     """The 2-bit kernel against its plain version, bit for bit, then
-    timed; returns (ms, plain ms, bound ms) at the ring's full-width
-    shape."""
+    timed; returns (ms, plain ms, device ms, bound ms) at the ring's
+    full-width shape."""
     g = torch.Generator(device="cuda").manual_seed(3)
 
     def check(what, got, want):
@@ -360,16 +494,18 @@ def phase3a(torch, tb, pmesh, n_params):
                                 out_residual=out[:, 1])
 
         ms = time_ms(kernel, 50)
+        dev, _ = device_ms(torch, kernel, PROFILE_REPS, "two_bit_kernel")
         plain = time_ms(lambda: tb.two_bit_quantize_plain(
             grad, res[:, 1], PARTY_THRESHOLD), 10)
         bnd, nbytes = two_bit_bound(P * m)
         print(f"[phase3a] two_bit rows {P}x{m} strided (the ring's shape): "
-              f"kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms none "
-              f"bound_ms {bnd:.4f} (bytes: {nbytes:.0f})", flush=True)
+              f"kernel_ms {ms:.4f} device_ms {shown(dev)} plain_ms "
+              f"{plain:.4f} library_ms none bound_ms {bnd:.4f} (bytes: "
+              f"{nbytes:.0f})", flush=True)
     print("[phase3a] two_bit: kernel == plain version bit for bit at n in "
           f"(1, 3, 4, 1001, 2^20, {n_params}), thr 0.5 / 0.01, and on "
           "strided rows", flush=True)
-    return ms, plain, bnd
+    return ms, plain, dev, bnd
 
 
 def phase3b(torch, np, qc, pmesh):
@@ -557,7 +693,8 @@ def phase3d(torch, np, fa, tb, qc, pmesh):
           f"2-bit codes {100 * share:.2f}%", flush=True)
     if share < 0.01:
         fail(f"threshold {PARTY_THRESHOLD} codes only {share} of step 1")
-    profile_round(torch, lambda: step(batches[0], red)[1], "phase3d profile")
+    profile_round(torch, lambda: step(batches[0], red)[1], "phase3d profile",
+                  PARTY * MODEL["depth"])
     return total["two_bit"]
 
 
@@ -591,19 +728,26 @@ def main():
     logs = _cuda.build(["flash_attention", "two_bit"])
     print(f"[phase0] built {len(logs)} CUDA source(s) for sm_90a in "
           f"{time.perf_counter() - t:.1f} s", flush=True)
-    for log in logs:
-        for line in log.splitlines():
-            if "Used" in line or "spill" in line:
-                print(f"[phase0] {line.strip()}", flush=True)
+    for src in ("flash_attention", "two_bit"):
+        # ptxas -v per kernel: registers, shared memory, spills (the log of
+        # the build that made the library, this run's or an earlier one's)
+        fn = None
+        for line in _cuda._target(src).with_suffix(".log").read_text() \
+                .splitlines():
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1]
+            elif fn and ("Used" in line or "spill" in line):
+                print(f"[phase0] {fn}: {line.strip()}", flush=True)
+    sass_check(_cuda, fa.TC_HEAD_DIMS)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"[phase0] matmul.allow_tf32="
           f"{torch.backends.cuda.matmul.allow_tf32} cudnn.allow_tf32="
           f"{torch.backends.cudnn.allow_tf32}", flush=True)
 
-    errs, times, library, bnd = phase1(torch, fa)
+    errs, times, library, dev, library_dev, bnd = phase1(torch, fa)
     launches, n_params = phase2(torch, np, fa)
-    tb_ms, tb_plain, tb_bound = phase3a(torch, tb, pmesh, n_params)
+    tb_ms, tb_plain, tb_dev, tb_bound = phase3a(torch, tb, pmesh, n_params)
     phase3b(torch, np, qc, pmesh)
     phase3c(torch, np, qc, pmesh)
     tb_launches = phase3d(torch, np, fa, tb, qc, pmesh)
@@ -613,13 +757,19 @@ def main():
         "launches": launches[key], "max_abs_err": errs[key],
         "ms": times[key][0], "plain_ms": times[key][1],
         "bound_ms": bnd[key][0], "bound_by": bnd[key][1],
-        "library_ms": library[key],
-    } for key, (name, where) in KERNELS.items()]
+        "library_ms": library[key], "kernel": kernel,
+        "device_ms": dev[key] if dev[key] is not None else "not measured",
+        "library_device_ms": (library_dev[key] if library_dev[key] is not None
+                              else "not measured"),
+    } for key, (name, where, kernel) in KERNELS.items()]
     table.append({
         "name": TWO_BIT[0], "route": "cuda", "source": TWO_BIT[1],
         "replaces": TWO_BIT[2], "launches": tb_launches,
         "max_abs_err": 0.0, "ms": tb_ms, "plain_ms": tb_plain,
-        "bound_ms": tb_bound, "bound_by": "bytes", "library_ms": None})
+        "bound_ms": tb_bound, "bound_by": "bytes", "library_ms": None,
+        "kernel": "two_bit_kernel",
+        "device_ms": tb_dev if tb_dev is not None else "not measured",
+        "library_device_ms": None})
     print(card, flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface. It is
 compiled for Hopper (``sm_90a``) into a shared library under
-``geomx_tpu_torch/_build/`` at first use, and again whenever the source
-or the flags change (the file name carries their hash). Nothing here runs
-at import: the CPU tests import every module, and there is no nvcc on a
-machine without the CUDA toolkit.
+``geomx_tpu_torch/_build/`` at first use, and again whenever the source,
+a ``csrc/*.cuh`` header or the flags change (the file name carries their
+hash). Nothing here runs at import: the CPU tests import every module,
+and there is no nvcc on a machine without the CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -44,7 +44,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
+    # the headers of csrc/ count as source: editing one rebuilds
+    src = b"".join(f.read_bytes() for f in [SRC_DIR / f"{name}.cu",
+                                            *sorted(SRC_DIR.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 

@@ -15,13 +15,20 @@ version, a CUDA tensor gets the kernel or an exception. The plain
 versions are public so a caller can run them on any device on purpose
 (the on-card comparison in ``chip_smoke.py`` does).
 
+On CUDA the kernel is chosen by dtype before any launch (``route``):
+bf16 forward and dK/dV run on the tensor cores (``geomx_fa_fwd_tc``,
+``geomx_fa_dkv_tc``, head dim padded to 32, 64 or 128), fp32 runs the
+CUDA-core kernels, whose fp32 products hold the 1e-4 tolerance that TF32
+tensor cores would miss; dQ runs ``flash_dq_kernel`` in both dtypes.
+
 Layout contract as in the JAX package: ``q`` is ``[B, Tq, H, D]``,
 ``k`` and ``v`` are ``[B, Tk, H, D]``, the output is ``[B, Tq, H, D]``;
 the logsumexp is fp32 ``[B, H, Tq]``. The kernels read the inputs
 through their strides (any layout whose last stride is 1, such as the
-per-head views of a fused qkv projection) and tile by 64 rows; the
-plain versions block by ``block_q`` / ``block_k`` as the Pallas kernels
-do.
+per-head views of a fused qkv projection; the tensor-core kernels copy
+16 bytes at a time, so an input whose pointer or B, T, H strides are not
+16-byte multiples is copied first) and tile by 64 rows; the plain
+versions block by ``block_q`` / ``block_k`` as the Pallas kernels do.
 """
 
 from __future__ import annotations
@@ -35,11 +42,13 @@ from geomx_tpu_torch.ops import _cuda
 
 __all__ = ["LAUNCHES", "flash_attention", "flash_fwd", "flash_bwd_dq",
            "flash_bwd_dkv", "flash_fwd_plain", "flash_bwd_dq_plain",
-           "flash_bwd_dkv_plain"]
+           "flash_bwd_dkv_plain", "route"]
 
 # kernel launches since the last reset, by kernel (the plain versions
 # do not count)
 LAUNCHES = {"fwd": 0, "dq": 0, "dkv": 0}
+
+TC_HEAD_DIMS = (32, 64, 128)   # the tensor-core kernels' padded head dims
 
 NEG = -1e30   # the Pallas kernels' masking sentinel, not -inf
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -226,60 +235,94 @@ class _Params(ctypes.Structure):
         + [("scale", ctypes.c_float)])
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _cuda.library("flash_attention")
-    for name in ("geomx_flash_fwd", "geomx_flash_dq", "geomx_flash_dkv"):
-        fn = getattr(lib, name)
-        if fn.restype is not ctypes.c_int:
-            fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_int,
-                           ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-    return lib
+_FNS = {}   # C entry point by kernel key, looked up once
 
 
-def _unit_last(x):
-    return x if x.stride(-1) == 1 else x.contiguous()
+def _fn(name: str):
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(_cuda.library("flash_attention"), f"geomx_flash_{name}")
+        fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FNS[name] = fn
+    return fn
+
+
+def route(dtype, D: int) -> int:
+    """The forward's and dK/dV's CUDA kernel for this dtype and head dim,
+    chosen before any launch: 0 for fp32 (the CUDA-core kernels: TF32
+    products would miss the 1e-4 fp32 tolerance), else the padded head
+    dim of the bf16 tensor-core kernel (the least of 32, 64, 128 that
+    holds ``D``; the columns past ``D`` are zeros in shared memory)."""
+    if dtype == torch.float32:
+        return 0
+    if dtype != torch.bfloat16 or D > TC_HEAD_DIMS[-1]:
+        raise ValueError(f"no flash attention kernel for {dtype}, D={D}")
+    return next(dp for dp in TC_HEAD_DIMS if D <= dp)
+
+
+def _aligned16(x) -> bool:
+    """Can the tensor-core kernels' 16-byte copies read ``x`` in place?
+    The last stride must be 1, the pointer and the B, T, H strides (in
+    bytes) multiples of 16."""
+    esz = x.element_size()
+    return (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+            and all(s * esz % 16 == 0 for s in x.stride()[:3]))
+
+
+def _operand(x, rt: int):
+    """``x`` as the kernel of route ``rt`` reads it: in place where it can,
+    else an explicit contiguous copy (fresh storage, so aligned)."""
+    if rt == 0:
+        return x if x.stride(-1) == 1 else x.contiguous()
+    if _aligned16(x):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 def _params(q, k, v, causal, do=None) -> _Params:
     B, Tq, H, D = q.shape
-    p = _Params(q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(),
-                B=B, H=H, Tq=Tq, Tk=k.shape[1], D=D, causal=int(causal),
-                scale=1.0 / (D ** 0.5))
+    kw = dict(q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), B=B, H=H, Tq=Tq,
+              Tk=k.shape[1], D=D, causal=int(causal), scale=1.0 / (D ** 0.5))
     named = [("q", q), ("k", k), ("v", v)] + ([("do", do)] if do is not None
                                              else [])
     for t, x in named:
-        for a, s in zip("bth", x.stride()[:3]):
-            setattr(p, f"{t}_s{a}", s)
+        sb, st, sh, _ = x.stride()
+        kw[f"{t}_sb"], kw[f"{t}_st"], kw[f"{t}_sh"] = sb, st, sh
     if do is not None:
-        p.dout = do.data_ptr()
-    return p
+        kw["dout"] = do.data_ptr()
+    return _Params(**kw)
 
 
-def _launch(name: str, p: _Params, q) -> None:
-    lib = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = getattr(lib, f"geomx_flash_{name}")(
-            ctypes.byref(p), int(q.dtype == torch.bfloat16), stream)
+def _launch(name: str, p: _Params, q, arg: int) -> None:
+    """Launch on ``q``'s device and current stream; ``arg`` is the route
+    (fwd, dkv) or the bf16 flag (dq)."""
+    fn = _fn(name)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if q.device.index == torch.cuda.current_device():
+        rc = fn(ctypes.byref(p), arg, stream)
+    else:
+        with torch.cuda.device(q.device):
+            rc = fn(ctypes.byref(p), arg, stream)
     if rc != 0:   # the C entry point returns the launch's cudaError_t
         raise RuntimeError(f"flash_{name} kernel launch: CUDA error {rc}")
     LAUNCHES[name] += 1
 
 
 def _fwd_cuda(q, k, v, causal):
-    q, k, v = _unit_last(q), _unit_last(k), _unit_last(v)
+    rt = route(q.dtype, q.shape[3])
+    q, k, v = (_operand(x, rt) for x in (q, k, v))
     B, Tq, H, D = q.shape
     o = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     p = _params(q, k, v, causal)
     p.out, p.lse = o.data_ptr(), lse.data_ptr()
-    _launch("fwd", p, q)
+    _launch("fwd", p, q, rt)
     return o, lse
 
 
-def _bwd_params(q, k, v, do, lse, delta, causal):
-    q, k, v, do = (_unit_last(x) for x in (q, k, v, do))
+def _bwd_params(q, k, v, do, lse, delta, causal, rt):
+    q, k, v, do = (_operand(x, rt) for x in (q, k, v, do))
     lse = lse.to(torch.float32).contiguous()
     delta = delta.to(torch.float32).contiguous()
     p = _params(q, k, v, causal, do)
@@ -289,19 +332,20 @@ def _bwd_params(q, k, v, do, lse, delta, causal):
 
 
 def _dq_cuda(q, k, v, do, lse, delta, causal):
-    p, keep = _bwd_params(q, k, v, do, lse, delta, causal)
+    p, keep = _bwd_params(q, k, v, do, lse, delta, causal, 0)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     p.dq = dq.data_ptr()
-    _launch("dq", p, keep[0])
+    _launch("dq", p, keep[0], int(q.dtype == torch.bfloat16))
     return dq
 
 
 def _dkv_cuda(q, k, v, do, lse, delta, causal):
-    p, keep = _bwd_params(q, k, v, do, lse, delta, causal)
+    rt = route(q.dtype, q.shape[3])
+    p, keep = _bwd_params(q, k, v, do, lse, delta, causal, rt)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     p.dk, p.dv = dk.data_ptr(), dv.data_ptr()
-    _launch("dkv", p, keep[0])
+    _launch("dkv", p, keep[0], rt)
     return dk, dv
 
 
