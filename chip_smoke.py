@@ -59,12 +59,12 @@ KERNELS = {   # launch-count key -> (name, TPU kernel it replaces, the CUDA
     "fwd": ("flash_fwd", "geomx_tpu/ops/flash_attention.py:85",
             "geomx_fa_fwd_tc"),
     "dq": ("flash_bwd_dq", "geomx_tpu/ops/flash_attention.py:155",
-           "flash_dq_kernel"),
+           "geomx_fa_dq_tc"),
     "dkv": ("flash_bwd_dkv", "geomx_tpu/ops/flash_attention.py:207",
             "geomx_fa_dkv_tc"),
 }
 # the bf16 kernels on the tensor cores: one instantiation per padded head dim
-TC_KERNELS = ("geomx_fa_fwd_tc", "geomx_fa_dkv_tc")
+TC_KERNELS = ("geomx_fa_fwd_tc", "geomx_fa_dq_tc", "geomx_fa_dkv_tc")
 PROFILE_REPS = 20           # calls per torch.profiler window
 TWO_BIT = ("two_bit_quantize", "geomx_tpu_torch/ops/csrc/two_bit.cu",
            "geomx_tpu/ops/__init__.py:161")

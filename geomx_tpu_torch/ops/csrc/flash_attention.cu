@@ -2,11 +2,11 @@
 //
 // Replaces the three Pallas TPU kernels of geomx_tpu/ops/flash_attention.py:
 //   _kernels -> fwd_kernel  (body :85, launched by fwd     :125)
-//       bf16: geomx_fa_fwd_tc<DP>   (tensor cores)   fp32: flash_fwd_kernel<float>
+//       bf16: geomx_fa_fwd_tc<DP>   (tensor cores)   fp32: flash_fwd_kernel
 //   _kernels -> dq_kernel   (body :155, launched by bwd_dq :187)
-//       bf16 and fp32: flash_dq_kernel<T>
+//       bf16: geomx_fa_dq_tc<DP>    (tensor cores)   fp32: flash_dq_kernel
 //   _kernels -> dkv_kernel  (body :207, launched by bwd_dkv :245)
-//       bf16: geomx_fa_dkv_tc<DP>   (tensor cores)   fp32: flash_dkv_kernel<float>
+//       bf16: geomx_fa_dkv_tc<DP>   (tensor cores)   fp32: flash_dkv_kernel
 // The route is chosen by dtype before any launch (geomx_tpu_torch/ops/
 // flash_attention.py, `route`): bf16 takes the tensor-core kernels, fp32
 // the CUDA-core ones, because TF32 products would miss the fp32 tolerance
@@ -16,8 +16,9 @@
 // T 511, D 64, bf16, causal) the forward moves ~16.9 MB and does ~2.1 causal
 // GFLOP: bound by bytes, 5.0 us at 3.35 TB/s against 2.2 us of tensor-core
 // time at 989 TFLOP/s; dK/dV moves ~25.4 MB (7.6 us) against ~4.3 GFLOP
-// (4.3 us). mma.sync reaches roughly two thirds of the tensor-core peak, so
-// both stay bound by bytes.
+// (4.3 us); dQ moves ~21.2 MB (6.3 us) against ~3.2 GFLOP (3.3 us).
+// mma.sync reaches roughly two thirds of the tensor-core peak, so all three
+// stay bound by bytes.
 //
 // The bf16 tensor-core kernels (geomx_fa_*_tc), and what they do about the
 // faults of the first, CUDA-core version (which fp32 still runs):
@@ -29,16 +30,17 @@
 //     copy per 8 elements, no per-element divide, no widening), rows padded
 //     by 16 bytes so the 8 row addresses of an ldmatrix hit distinct banks;
 //     rows at or past T and head-dim columns at or past D are zero-filled
-//     by the copy's src-size operand. Forward ~45 KB and dK/dV ~56 KB of
-//     shared memory at D = 64 (the CUDA-core versions: 66.5 and ~100 KB);
+//     by the copy's src-size operand. Forward ~45 KB, dQ ~54 KB and dK/dV
+//     ~56 KB of shared memory at D = 64 (the CUDA-core versions: 66.5, 83
+//     and ~100 KB);
 //   - overlap: the next tile's copies are in flight (double buffer, one
 //     cp.async group per tile) while the current tile's products run;
 //   - no shared-memory round trip for P or dS: a warp owns 16 rows of the
 //     output tile, the score tile's C fragments are rounded to bf16 in
 //     place and used as the A operand of the next product;
-//   - causal tail: the forward's q tile is the slowest grid index, reversed,
-//     so every (b, h)'s heaviest tiles start first; dK/dV's k tile 0, its
-//     heaviest, starts first by the same layout unreversed.
+//   - causal tail: the forward's and dQ's q tile is the slowest grid index,
+//     reversed, so every (b, h)'s heaviest tiles start first; dK/dV's k tile
+//     0, its heaviest, starts first by the same layout unreversed.
 // The head dim is a template (DP in 32, 64, 128); a D that is a multiple of
 // 8 below DP runs the next larger DP, its columns past D zero-filled in
 // shared memory and never written, so every D the wrapper accepts (8..128)
@@ -51,6 +53,16 @@
 // rounded to bf16 after the online-softmax rescale and fed to P.V from the
 // same registers. O is staged through the Q tile for 16-byte stores.
 //
+// dQ: the forward's layout. Warp w owns q rows 16w..16w+15; Q and dO are
+// copied once into shared memory and their A fragments read from there by
+// ldmatrix on every k step; the rows' lse and delta and the dQ accumulator
+// (16 x DP fp32) stay in registers while K and V stream through a double
+// buffer (64-row steps, 32 at DP = 128). S = Q K^T and dP = dO V^T take K
+// and V as B operands by plain ldmatrix; dS is built in the S registers,
+// rounded to bf16 and used as the A operand of dQ += dS K, with K through
+// ldmatrix.trans. dQ is its own deterministic pass, as in the
+// JAX package, not atomics from dK/dV. dQ is staged through the Q tile.
+//
 // dK/dV: one block of 4 warps per (b, h, 64-row k tile); warp w owns k rows
 // 16w..16w+15 and keeps its dK and dV accumulators (16 x DP fp32 each) in
 // registers for the whole sweep over q tiles of BQS rows (64, or 32 at
@@ -60,9 +72,8 @@
 // the accumulator registers; Q and dO are the B operands through
 // ldmatrix.trans. The q tile's lse and delta ride with it (4-byte cp.async).
 //
-// The CUDA-core kernels: one block of 256 threads per (b, h, 64-row tile),
-// tiles staged in shared memory as fp32 (bf16 widens exactly), rows padded
-// to D + 1 floats, a 64 x 64 score tile as 4 x 4 registers per thread, row
+// The fp32 CUDA-core kernels: one block of 256 threads per (b, h, 64-row
+// tile), tiles staged in shared memory, rows padded to D + 1 floats, a 64 x 64 score tile as 4 x 4 registers per thread, row
 // max and sum as half-warp shuffles, fp32 FMAs.
 //
 // Every kernel reads q, k, v and dO in the model's [B, T, H, D] layout
@@ -121,20 +132,6 @@ struct AttnParams {
 
 namespace {
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// x rounded to the storage type T and widened back (the Pallas .astype)
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
-
 __device__ __forceinline__ float half_warp_max(float x) {
 #pragma unroll
   for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -148,15 +145,14 @@ __device__ __forceinline__ float half_warp_sum(float x) {
 }
 
 // Rows [t0, t0 + 64) of one (b, h) slice of a [B, T, H, D] tensor (src points
-// at row 0 of the slice, st is the T stride) into shared fp32 [64][D + 1];
-// rows at or past t_len are zero.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, long long st,
+// at row 0 of the slice, st is the T stride) into shared [64][D + 1]; rows
+// at or past t_len are zero.
+__device__ __forceinline__ void load_tile(float* dst, const float* src, long long st,
                                           int t0, int t_len, int D) {
   const int ld = D + 1;
   for (int i = threadIdx.x; i < 64 * D; i += NT) {
     const int r = i / D, d = i - r * D, t = t0 + r;
-    dst[r * ld + d] = t < t_len ? to_f(src[(long long)t * st + d]) : 0.f;
+    dst[r * ld + d] = t < t_len ? src[(long long)t * st + d] : 0.f;
   }
 }
 
@@ -166,7 +162,6 @@ __device__ __forceinline__ bool visible(const AttnParams& p, int qpos, int kpos,
 
 // ---- forward: O = softmax(Q K^T / sqrt(D)) V, lse = m + log l --------------
 
-template <typename T>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(const AttnParams p) {
   extern __shared__ float smem[];
   const int D = p.D, ld = D + 1;
@@ -177,9 +172,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const AttnParams p) {
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int off = p.Tk - p.Tq;
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
   load_tile(Qs, q, p.q_st, q0, p.Tq, D);
 
   float m[4], l[4], acc[4][MAXJ];
@@ -229,7 +224,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const AttnParams p) {
       for (int j = 0; j < 4; ++j) {
         const float e = expf(s[i][j] - m_new);
         sum += e;
-        Ps[r * LDS + tx + 16 * j] = round_to<T>(e);
+        Ps[r * LDS + tx + 16 * j] = e;
       }
       const float alpha = expf(m[i] - m_new);
       l[i] = l[i] * alpha + half_warp_sum(sum);
@@ -255,18 +250,18 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const AttnParams p) {
     }
   }
 
-  T* o = static_cast<T*>(p.out);
+  float* o = static_cast<float*>(p.out);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int t = q0 + ty + 16 * i;
     if (t >= p.Tq) continue;
     // rows with no visible key have l == 0: emit zeros
     const float safe = l[i] > 0.f ? l[i] : 1.f;
-    T* orow = o + (((long long)b * p.Tq + t) * p.H + h) * D;
+    float* orow = o + (((long long)b * p.Tq + t) * p.H + h) * D;
 #pragma unroll
     for (int j = 0; j < MAXJ; ++j) {
       const int d = tx + 16 * j;
-      if (d < D) orow[d] = from_f<T>(acc[i][j] / safe);
+      if (d < D) orow[d] = acc[i][j] / safe;
     }
     if (tx == 0) p.lse[((long long)b * p.H + h) * p.Tq + t] = m[i] + logf(safe);
   }
@@ -274,7 +269,6 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const AttnParams p) {
 
 // ---- backward dQ: dQ = sum_k dS K, dS = P (dP - delta) / sqrt(D) -----------
 
-template <typename T>
 __global__ void __launch_bounds__(NT) flash_dq_kernel(const AttnParams p) {
   extern __shared__ float smem[];
   const int D = p.D, ld = D + 1;
@@ -286,10 +280,10 @@ __global__ void __launch_bounds__(NT) flash_dq_kernel(const AttnParams p) {
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int off = p.Tk - p.Tq;
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const T* dout = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* dout = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
   const long long bh = (long long)b * p.H + h;
   load_tile(Qs, q, p.q_st, q0, p.Tq, D);
   load_tile(Os, dout, p.do_st, q0, p.Tq, D);
@@ -342,7 +336,7 @@ __global__ void __launch_bounds__(NT) flash_dq_kernel(const AttnParams p) {
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
         const float pij = visible(p, q0 + r, k0 + c, off) ? expf(s[i][j] * p.scale - lse[i]) : 0.f;
-        Ss[r * LDS + c] = round_to<T>(pij * (dp[i][j] - dlt[i]) * p.scale);
+        Ss[r * LDS + c] = pij * (dp[i][j] - dlt[i]) * p.scale;
       }
     }
     __syncthreads();
@@ -363,23 +357,22 @@ __global__ void __launch_bounds__(NT) flash_dq_kernel(const AttnParams p) {
     }
   }
 
-  T* dq = static_cast<T*>(p.dq);
+  float* dq = static_cast<float*>(p.dq);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int t = q0 + ty + 16 * i;
     if (t >= p.Tq) continue;
-    T* row = dq + (((long long)b * p.Tq + t) * p.H + h) * D;
+    float* row = dq + (((long long)b * p.Tq + t) * p.H + h) * D;
 #pragma unroll
     for (int j = 0; j < MAXJ; ++j) {
       const int d = tx + 16 * j;
-      if (d < D) row[d] = from_f<T>(acc[i][j]);
+      if (d < D) row[d] = acc[i][j];
     }
   }
 }
 
 // ---- backward dK/dV: dV = sum_q P^T dO, dK = sum_q dS^T Q ------------------
 
-template <typename T>
 __global__ void __launch_bounds__(NT) flash_dkv_kernel(const AttnParams p) {
   extern __shared__ float smem[];
   const int D = p.D, ld = D + 1;
@@ -394,10 +387,10 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(const AttnParams p) {
   const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * BK;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int off = p.Tk - p.Tq;
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const T* dout = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* dout = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
   const long long bh = (long long)b * p.H + h;
   load_tile(Ks, k, p.k_st, k0, p.Tk, D);
   load_tile(Vs, v, p.v_st, k0, p.Tk, D);
@@ -454,8 +447,8 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(const AttnParams p) {
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
         const float pij = visible(p, q0 + r, k0 + c, off) ? expf(s[i][j] * p.scale - Ls[r]) : 0.f;
-        Ps[r * LDS + c] = round_to<T>(pij);
-        Ss[r * LDS + c] = round_to<T>(pij * (dp[i][j] - Es[r]) * p.scale);
+        Ps[r * LDS + c] = pij;
+        Ss[r * LDS + c] = pij * (dp[i][j] - Es[r]) * p.scale;
       }
     }
     __syncthreads();
@@ -482,8 +475,8 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(const AttnParams p) {
     }
   }
 
-  T* dkp = static_cast<T*>(p.dk);
-  T* dvp = static_cast<T*>(p.dv);
+  float* dkp = static_cast<float*>(p.dk);
+  float* dvp = static_cast<float*>(p.dv);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int t = k0 + ty + 16 * i;
@@ -493,8 +486,8 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(const AttnParams p) {
     for (int j = 0; j < MAXJ; ++j) {
       const int d = tx + 16 * j;
       if (d < D) {
-        dkp[row + d] = from_f<T>(dk[i][j]);
-        dvp[row + d] = from_f<T>(dv[i][j]);
+        dkp[row + d] = dk[i][j];
+        dvp[row + d] = dv[i][j];
       }
     }
   }
@@ -870,6 +863,128 @@ __global__ void __launch_bounds__(TC) geomx_fa_dkv_tc(const AttnParams p) {
                  k0 + 16 * warp, p.Tk, p.H, p.D);
 }
 
+// ---- dQ on the tensor cores: dQ = sum_k dS K, dS = P (dP - delta) scale ---
+
+// Each warp reads its Q and dO A fragments from the resident tiles on every
+// k step: holding them in registers instead costs DP / 2 more registers,
+// and at DP = 64 leaves room for 2 blocks per SM, not 3. At DP = 128 the k
+// step drops to 32 rows to halve the S and dP tiles beside the 16 x 128 dQ
+// accumulator.
+template <int DP>
+__global__ void __launch_bounds__(TC, DP > 64 ? 1 : 3) geomx_fa_dq_tc(const AttnParams p) {
+  constexpr int BKS = DP > 64 ? 32 : 64;  // k rows per sweep step
+  constexpr int LD = DP + 8, KS = DP / 16, NKT = BKS / 8, NDT = DP / 8;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(tc_smem);  // [BQ][LD]
+  bf16* Os = Qs + BQ * LD;                      // [BQ][LD], dO
+  bf16* Ks = Os + BQ * LD;                      // [2][BKS][LD]
+  bf16* Vs = Ks + 2 * BKS * LD;                 // [2][BKS][LD]
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest causal tiles first
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int off = p.Tk - p.Tq;
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const bf16* dout = static_cast<const bf16*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const int kend = p.causal ? min(p.Tk, q0 + BQ + off) : p.Tk;
+  const int nk = (kend + BKS - 1) / BKS;
+
+  copy_tile<BQ, DP>(Qs, q, p.q_st, q0, p.Tq, p.D);
+  copy_tile<BQ, DP>(Os, dout, p.do_st, q0, p.Tq, p.D);
+  copy_tile<BKS, DP>(Ks, k, p.k_st, 0, p.Tk, p.D);
+  copy_tile<BKS, DP>(Vs, v, p.v_st, 0, p.Tk, p.D);
+  cp_async_commit();
+
+  // lse (as a log2) and delta of the thread's two rows g, g + 8 of the warp
+  const float sl2 = p.scale * LOG2E;
+  const long long bh = (long long)b * p.H + h;
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int t = q0 + 16 * warp + g + 8 * hf;
+    lse2[hf] = t < p.Tq ? p.lse_in[bh * p.Tq + t] * LOG2E : 0.f;
+    dlt[hf] = t < p.Tq ? p.delta[bh * p.Tq + t] : 0.f;
+  }
+  float dq[NDT][4];
+#pragma unroll
+  for (int j = 0; j < NDT; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+
+  for (int it = 0; it < nk; ++it) {
+    const int k0 = it * BKS;
+    const bf16* Kt = Ks + (it & 1) * BKS * LD;
+    const bf16* Vt = Vs + (it & 1) * BKS * LD;
+    if (it + 1 < nk) {  // the next tile's copy runs under this tile's products
+      copy_tile<BKS, DP>(Ks + ((it + 1) & 1) * BKS * LD, k, p.k_st, k0 + BKS, p.Tk, p.D);
+      copy_tile<BKS, DP>(Vs + ((it + 1) & 1) * BKS * LD, v, p.v_st, k0 + BKS, p.Tk, p.D);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T: 16 q rows x BKS keys per warp
+    float s[NKT][4], dp[NKT][4];
+#pragma unroll
+    for (int j = 0; j < NKT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t qa[4], oa[4];
+      ldsm_x4(qa, Qs + a_off(lane, 16 * warp, 16 * ks, LD));
+      ldsm_x4(oa, Os + a_off(lane, 16 * warp, 16 * ks, LD));
+#pragma unroll
+      for (int j = 0; j < NKT; j += 2) {
+        uint32_t bb[4];
+        ldsm_x4(bb, Kt + b_off(lane, 8 * j, 16 * ks, LD));
+        mma(s[j], qa, bb[0], bb[1]);
+        mma(s[j + 1], qa, bb[2], bb[3]);
+        ldsm_x4(bb, Vt + b_off(lane, 8 * j, 16 * ks, LD));
+        mma(dp[j], oa, bb[0], bb[1]);
+        mma(dp[j + 1], oa, bb[2], bb[3]);
+      }
+    }
+
+    // P = exp(S scale - lse), masked; dS = P (dP - delta) scale in place of
+    // S. Element e of n-tile j is q row g + 8 (e / 2) of the warp, key
+    // 8j + 2 t4 + e % 2 of the tile.
+    const bool edge = k0 + BKS > p.Tk || (p.causal && k0 + BKS - 1 > q0 + off);
+#pragma unroll
+    for (int j = 0; j < NKT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hf = e >> 1;
+        float pr = exp2f(s[j][e] * sl2 - lse2[hf]);
+        if (edge && !visible(p, q0 + 16 * warp + g + 8 * hf, k0 + 8 * j + 2 * t4 + (e & 1), off))
+          pr = 0.f;
+        s[j][e] = pr * (dp[j][e] - dlt[hf]) * p.scale;
+      }
+
+    // dQ += dS K: dS (rounded to K's type) from the registers above, K
+    // through ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < BKS / 16; ++kk) {
+      uint32_t a[4];
+      c_to_a(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int j = 0; j < NDT; j += 2) {
+        uint32_t bb[4];
+        ldsm_x4_t(bb, Kt + bt_off(lane, 16 * kk, 8 * j, LD));
+        mma(dq[j], a, bb[0], bb[1]);
+        mma(dq[j + 1], a, bb[2], bb[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it refills
+  }
+
+  // the warp's own 16 rows of the Q tile, read only by this warp, stage dQ
+  const float one[2] = {1.f, 1.f};
+  bf16* out = static_cast<bf16*>(p.dq) + ((long long)b * p.Tq * p.H + h) * p.D;
+  store_rows<DP>(Qs + 16 * warp * LD, dq, one, out, q0 + 16 * warp, p.Tq, p.H, p.D);
+}
+
 // ---- launch -----------------------------------------------------------
 
 namespace {
@@ -882,6 +997,9 @@ size_t dkv_smem(int D) {
   return sizeof(float) * ((size_t)(2 * BQ + 2 * BK) * (D + 1) + 2 * BQ * LDS + 2 * BQ);
 }
 constexpr size_t fwd_tc_smem(int DP) { return sizeof(bf16) * (size_t)(BQ + 4 * BK) * (DP + 8); }
+constexpr size_t dq_tc_smem(int DP) {
+  return sizeof(bf16) * (size_t)(2 * BQ + 4 * (DP > 64 ? 32 : 64)) * (DP + 8);
+}
 constexpr size_t dkv_tc_smem(int DP) {
   return sizeof(bf16) * (size_t)(2 * BK + 4 * (DP > 64 ? 32 : 64)) * (DP + 8) +
          sizeof(float) * 4 * (DP > 64 ? 32 : 64);
@@ -932,6 +1050,12 @@ int fwd_tc(const AttnParams& p, void* stream) {
 }
 
 template <int DP>
+int dq_tc(const AttnParams& p, void* stream) {
+  return launch(geomx_fa_dq_tc<DP>, tc_grid(p, p.Tq), TC, dq_tc_smem(DP), dq_tc_smem(DP), p,
+                stream);
+}
+
+template <int DP>
 int dkv_tc(const AttnParams& p, void* stream) {
   return launch(geomx_fa_dkv_tc<DP>, tc_grid(p, p.Tk), TC, dkv_tc_smem(DP), dkv_tc_smem(DP), p,
                 stream);
@@ -946,7 +1070,7 @@ extern "C" int geomx_flash_fwd(const AttnParams* p, int route, void* stream) {
   if (route != 0 && route < p->D) return static_cast<int>(cudaErrorInvalidValue);
   switch (route) {
     case 0:
-      return launch(flash_fwd_kernel<float>, dim3((p->Tq + BQ - 1) / BQ, p->H, p->B), NT,
+      return launch(flash_fwd_kernel, dim3((p->Tq + BQ - 1) / BQ, p->H, p->B), NT,
                     fwd_smem(p->D), fwd_smem(MAX_D), *p, stream);
     case 32: return fwd_tc<32>(*p, stream);
     case 64: return fwd_tc<64>(*p, stream);
@@ -955,19 +1079,24 @@ extern "C" int geomx_flash_fwd(const AttnParams* p, int route, void* stream) {
   }
 }
 
-// bf16 != 0 selects __nv_bfloat16 operands, else float
-extern "C" int geomx_flash_dq(const AttnParams* p, int bf16, void* stream) {
-  const dim3 grid((p->Tq + BQ - 1) / BQ, p->H, p->B);
-  Kernel kernel = flash_dq_kernel<float>;
-  if (bf16) kernel = flash_dq_kernel<__nv_bfloat16>;
-  return launch(kernel, grid, NT, dq_smem(p->D), dq_smem(MAX_D), *p, stream);
+extern "C" int geomx_flash_dq(const AttnParams* p, int route, void* stream) {
+  if (route != 0 && route < p->D) return static_cast<int>(cudaErrorInvalidValue);
+  switch (route) {
+    case 0:
+      return launch(flash_dq_kernel, dim3((p->Tq + BQ - 1) / BQ, p->H, p->B), NT,
+                    dq_smem(p->D), dq_smem(MAX_D), *p, stream);
+    case 32: return dq_tc<32>(*p, stream);
+    case 64: return dq_tc<64>(*p, stream);
+    case 128: return dq_tc<128>(*p, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" int geomx_flash_dkv(const AttnParams* p, int route, void* stream) {
   if (route != 0 && route < p->D) return static_cast<int>(cudaErrorInvalidValue);
   switch (route) {
     case 0:
-      return launch(flash_dkv_kernel<float>, dim3((p->Tk + BK - 1) / BK, p->H, p->B), NT,
+      return launch(flash_dkv_kernel, dim3((p->Tk + BK - 1) / BK, p->H, p->B), NT,
                     dkv_smem(p->D), dkv_smem(MAX_D), *p, stream);
     case 32: return dkv_tc<32>(*p, stream);
     case 64: return dkv_tc<64>(*p, stream);

@@ -15,11 +15,11 @@ version, a CUDA tensor gets the kernel or an exception. The plain
 versions are public so a caller can run them on any device on purpose
 (the on-card comparison in ``chip_smoke.py`` does).
 
-On CUDA the kernel is chosen by dtype before any launch (``route``):
-bf16 forward and dK/dV run on the tensor cores (``geomx_fa_fwd_tc``,
-``geomx_fa_dkv_tc``, head dim padded to 32, 64 or 128), fp32 runs the
-CUDA-core kernels, whose fp32 products hold the 1e-4 tolerance that TF32
-tensor cores would miss; dQ runs ``flash_dq_kernel`` in both dtypes.
+On CUDA the kernel is chosen by dtype before any launch (``route``),
+alike for all three: bf16 runs on the tensor cores (``geomx_fa_fwd_tc``,
+``geomx_fa_dq_tc``, ``geomx_fa_dkv_tc``, head dim padded to 32, 64 or
+128), fp32 runs the CUDA-core kernels, whose fp32 products hold the 1e-4
+tolerance that TF32 tensor cores would miss.
 
 Layout contract as in the JAX package: ``q`` is ``[B, Tq, H, D]``,
 ``k`` and ``v`` are ``[B, Tk, H, D]``, the output is ``[B, Tq, H, D]``;
@@ -249,8 +249,8 @@ def _fn(name: str):
 
 
 def route(dtype, D: int) -> int:
-    """The forward's and dK/dV's CUDA kernel for this dtype and head dim,
-    chosen before any launch: 0 for fp32 (the CUDA-core kernels: TF32
+    """The CUDA kernel of each flash entry point for this dtype and head
+    dim, chosen before any launch: 0 for fp32 (the CUDA-core kernels: TF32
     products would miss the 1e-4 fp32 tolerance), else the padded head
     dim of the bf16 tensor-core kernel (the least of 32, 64, 128 that
     holds ``D``; the columns past ``D`` are zeros in shared memory)."""
@@ -295,8 +295,8 @@ def _params(q, k, v, causal, do=None) -> _Params:
 
 
 def _launch(name: str, p: _Params, q, arg: int) -> None:
-    """Launch on ``q``'s device and current stream; ``arg`` is the route
-    (fwd, dkv) or the bf16 flag (dq)."""
+    """Launch on ``q``'s device and current stream; ``arg`` is the
+    route."""
     fn = _fn(name)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if q.device.index == torch.cuda.current_device():
@@ -332,10 +332,11 @@ def _bwd_params(q, k, v, do, lse, delta, causal, rt):
 
 
 def _dq_cuda(q, k, v, do, lse, delta, causal):
-    p, keep = _bwd_params(q, k, v, do, lse, delta, causal, 0)
+    rt = route(q.dtype, q.shape[3])
+    p, keep = _bwd_params(q, k, v, do, lse, delta, causal, rt)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     p.dq = dq.data_ptr()
-    _launch("dq", p, keep[0], int(q.dtype == torch.bfloat16))
+    _launch("dq", p, keep[0], rt)
     return dq
 
 

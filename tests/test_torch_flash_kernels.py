@@ -110,7 +110,7 @@ def test_fused_qkv_views_match_plain(cuda_device, T):
     _check_against_plain(q, k, v, do, True)
 
 
-def test_route_by_dtype_head_dim_and_alignment():
+def test_route_by_dtype_head_dim_and_alignment(monkeypatch):
     """Runs on the CPU: which kernel each input takes, before any launch."""
     assert fa.route(torch.float32, 64) == 0
     for D, want in ((8, 32), (32, 32), (40, 64), (64, 64), (72, 128),
@@ -133,13 +133,49 @@ def test_route_by_dtype_head_dim_and_alignment():
         y = fa._operand(x, 32)
         assert y is not x and fa._aligned16(y) and torch.equal(y, x)
         assert fa._operand(x, 0) is x
+    # dQ takes its route from route() as the forward and dK/dV do, and its
+    # misaligned bf16 inputs are copied first: the arguments it would
+    # launch with, on CPU tensors, with the launch replaced
+    seen = []
+    monkeypatch.setattr(fa, "_launch",
+                        lambda name, p, q, arg: seen.append((name, q, arg)))
+    for dtype, want in ((torch.bfloat16, 64), (torch.float32, 0)):
+        flat = torch.zeros(2 * 5 * 4 * 40 + 1, dtype=dtype)
+        q = flat[1:].view(2, 5, 4, 40)
+        stats = torch.zeros(2, 4, 5)
+        fa._dq_cuda(q, q, q, q, stats, stats, True)
+        name, q_in, arg = seen.pop()
+        assert (name, arg) == ("dq", want)
+        assert (q_in is not q) == (want != 0) and torch.equal(q_in, q)
 
 
 @pytest.mark.cuda
 def test_cuda_tensors_launch_the_kernels(cuda_device):
-    q = torch.randn(1, 40, 2, 32, device=cuda_device)
-    before = dict(fa.LAUNCHES)
-    o = fa.flash_attention(q.clone().requires_grad_(), q, q, causal=True)
-    o.sum().backward()
-    assert {k: fa.LAUNCHES[k] - before[k] for k in before} == \
-        {"fwd": 1, "dq": 1, "dkv": 1}
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn(1, 40, 2, 32, device=cuda_device).to(dtype)
+        before = dict(fa.LAUNCHES)
+        o = fa.flash_attention(q.clone().requires_grad_(), q, q, causal=True)
+        o.float().sum().backward()
+        assert {k: fa.LAUNCHES[k] - before[k] for k in before} == \
+            {"fwd": 1, "dq": 1, "dkv": 1}, dtype
+
+
+# dQ pinned at the transformer slice's shape, and at a ragged Tq < Tk whose
+# decode offset (Tk - Tq = 130) is not a multiple of the 64-row tile, so a
+# dead-tile or offset error in the dQ sweep shows
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Tq,Tk", [(8, 8, 511, 511), (2, 3, 100, 230)])
+def test_dq_tensor_core_kernel_matches_plain(cuda_device, B, H, Tq, Tk):
+    g = torch.Generator(device=cuda_device).manual_seed(Tq + Tk)
+    q, k, v, do = (torch.randn(B, t, H, 64, device=cuda_device, generator=g)
+                   .to(torch.bfloat16) for t in (Tq, Tk, Tk, Tq))
+    op, lp = fa.flash_fwd_plain(q, k, v, causal=True)
+    delta = (do.float() * op.float()).sum(-1).transpose(1, 2).contiguous()
+    before = fa.LAUNCHES["dq"]
+    got = fa.flash_bwd_dq(q, k, v, do, lp, delta, causal=True)
+    want = fa.flash_bwd_dq_plain(q, k, v, do, lp, delta, causal=True)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["dq"] == before + 1
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
