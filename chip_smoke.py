@@ -34,17 +34,33 @@ transformer as a 2-rank party, 5 steps of local grads, one 2-bit ring
 over the flattened gradient and SGD, and checks every step's launches
 and step 1's ring against its CPU replay.
 
+Phase 4 is the HiPS tier: a live two-party topology (``InProcessHiPS``,
+one worker per party, every role on threads of this process, every byte
+over loopback sockets) with ``DeviceResidentTrainer`` on the card in
+both workers. 4a is the main path, ``bench.py`` ``bench_hips_bsc``:
+LeNet, BSC threshold 0.02, lr 0.05, 128 images per worker, 200 rounds
+of the pipelined round, then both accuracies (at least 0.98), the
+``step_timed`` medians, img/s and WAN bytes per round, and the two
+workers' parameters bit for bit. 4b is ``bench_transformer_bsc``: the
+59M transformer, 10 counted rounds (finite, declining losses; 8 launches
+of each flash kernel per step per worker), the ``step_timed`` split with
+the pipelined and the serial round, one profiled round, and the
+replicas bit for bit.
+
 Exits non-zero without a card, outside a checkout, or when any check
 fails. The line before the last is the kernel table as JSON; the last is
 ``{"ok": true, "device": {...}}``.
 """
 
+import hashlib
 import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
+import threading
 import time
 
 SLICE = dict(B=8, T=511, H=8, D=64)        # the transformer's attention
@@ -77,6 +93,14 @@ PARTY, PARTY_LR = 2, 0.05           # phase 3d: ranks, SGD step
 # at this gradient scale; this one codes about a quarter of step 1's
 # coordinates (the script prints the share and fails below 1%)
 PARTY_THRESHOLD = 1e-4
+# phase 4a: bench.py bench_hips_bsc's main path (bench.py:52,76,352,355)
+LENET = dict(batch=128, threshold=0.02, lr=0.05, rounds=200, timed=5,
+             thr_rounds=50)
+PARITY_TOL_BSC = 0.02       # of the 1.0 the dense run reaches on this data
+# phase 4b: bench.py bench_transformer_bsc's settings
+HIPS_TF = dict(threshold=0.01, lr=0.05, momentum=0.9, batches=4, rounds=10,
+               timed=2, alternations=2)
+JOIN_S = 900                # per topology: a hung worker fails the phase
 
 
 def fail(msg):
@@ -418,6 +442,18 @@ def profile_round(torch, run, tag, tc_launches):
         t = time.perf_counter()
         phases = run()
         wall = (time.perf_counter() - t) * 1e3
+    counts = profile_summary(prof, wall, phases, tag)
+    for tc in TC_KERNELS:
+        if counts is not None and counts[tc] != tc_launches:
+            fail(f"{tag}: {tc} ran {counts[tc]} times in the round, "
+                 f"expected {tc_launches}: the bf16 path must run the "
+                 "tensor-core kernels")
+
+
+def profile_summary(prof, wall, phases, tag):
+    """Print a profiled round's device busy share and largest kernels;
+    returns the launches of each tensor-core flash kernel (None when the
+    profiler saw no device time)."""
     rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
                    for e in prof.key_averages()
                    if str(e.device_type).endswith("CUDA")
@@ -426,21 +462,19 @@ def profile_round(torch, run, tag, tc_launches):
     if not rows:
         print(f"[{tag}] device time not measured: the profiler saw no "
               "device activity", flush=True)
-        return
+        return None
     print(f"[{tag}] round wall {wall:.3f} ms, device busy {busy:.3f} ms "
           f"({100 * busy / wall:.1f}%), phases "
           f"{ {k: round(v, 3) for k, v in phases.items()} }", flush=True)
     for ms, n, name in rows[:15]:
         print(f"[{tag}] {ms:9.3f} ms {100 * ms / busy:5.1f}% x{n:<5d} "
               f"{name[:100]}", flush=True)
+    counts = {}
     for tc in TC_KERNELS:
         ms = sum(r[0] for r in rows if tc in r[2])
-        n = sum(r[1] for r in rows if tc in r[2])
+        counts[tc] = n = sum(r[1] for r in rows if tc in r[2])
         print(f"[{tag}] {tc}: {n} launches, {ms:.3f} ms", flush=True)
-        if n != tc_launches:
-            fail(f"{tag}: {tc} ran {n} times in the round, expected "
-                 f"{tc_launches}: the bf16 path must run the tensor-core "
-                 "kernels")
+    return counts
 
 
 def two_bit_bound(n):
@@ -698,6 +732,326 @@ def phase3d(torch, np, fa, tb, qc, pmesh):
     return total["two_bit"]
 
 
+def medians(timed):
+    """Per-phase medians (ms) of a list of ``step_timed`` splits."""
+    return {k: round(statistics.median(t[k] for t in timed), 3)
+            for k in timed[0]}
+
+
+def reset(counters):
+    for c in counters:
+        for key in c:
+            c[key] = 0
+
+
+def run_hips(torch, np, worker, leaves0, tag, barriers=(), main_fn=None):
+    """Start a live two-party HiPS (one worker per party, all roles on
+    threads of this process, every byte over loopback sockets), init the
+    keys from the master, run ``worker(kv, widx)`` on both party workers
+    at once (and ``main_fn()`` on this thread meanwhile) and stop the
+    topology. A failure in either worker breaks ``barriers`` and fails
+    the phase; a hung worker fails it after JOIN_S."""
+    from geomx_tpu_torch.simulate import InProcessHiPS
+
+    t = time.perf_counter()
+    topo = InProcessHiPS(num_parties=2, workers_per_party=1).start()
+    errors = []
+
+    def master_init(kv):
+        for i, leaf in enumerate(leaves0):
+            kv.init(i, np.array(leaf))
+        kv.wait()
+
+    def one(kv):
+        try:
+            worker(kv, topo.workers.index(kv))
+        except BaseException:
+            for b in barriers:
+                b.abort()
+            raise
+
+    def body():
+        try:
+            topo.run_workers(one, include_master=master_init,
+                             timeout=JOIN_S)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+            for b in barriers:
+                b.abort()
+
+    try:
+        runner = threading.Thread(target=body, daemon=True)
+        runner.start()
+        main_err = None
+        try:
+            if main_fn is not None:
+                main_fn()
+        except BaseException as e:  # noqa: BLE001 — a worker's error first
+            main_err = e
+        runner.join(JOIN_S + 60)
+        if errors:
+            raise errors[0]
+        if main_err is not None:
+            raise main_err
+        if runner.is_alive():
+            fail(f"{tag}: the workers did not finish")
+    finally:
+        topo.stop()
+    print(f"[{tag}] topology up, trained and down in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+
+
+def check_replicas(np, leaves, tag):
+    for a, b in zip(leaves[0], leaves[1]):
+        if a.tobytes() != b.tobytes():
+            fail(f"{tag}: the two workers' parameters differ (FSA lockstep "
+                 "keeps them bit-identical)")
+    if not all(np.isfinite(l).all() for l in leaves[0]):
+        fail(f"{tag}: non-finite parameters")
+    print(f"[{tag}] the two workers' {len(leaves[0])} parameter leaves are "
+          "bit-identical and finite", flush=True)
+
+
+def phase4a(torch, np, fa, tb):
+    """The main path: LeNet through DeviceResidentTrainer over a live
+    two-party HiPS with BSC (the pipelined round, GEOMX_OVERLAP's
+    default), bench_hips_bsc's settings."""
+    from geomx_tpu_torch import telemetry
+    from geomx_tpu_torch.examples.utils import build_model_and_step, eval_acc
+    from geomx_tpu_torch.io import load_data
+    from geomx_tpu_torch.trainer_device import DeviceResidentTrainer
+
+    B, R = LENET["batch"], LENET["rounds"]
+    telemetry.enable(True)
+    leaves0, _names, grad_step, eval_step = build_model_and_step(
+        B, device="cuda")
+    warm = threading.Lock()
+    bar = threading.Barrier(2)
+    res, wan, counts = {}, {}, {}
+
+    def worker(kv, w):
+        tr = DeviceResidentTrainer(
+            list(leaves0), kv, grad_step, threshold=LENET["threshold"],
+            learning_rate=LENET["lr"], momentum=0.0, device="cuda")
+        train_iter, test_iter, _, _ = load_data(B, 2, w)
+        batches = [(torch.as_tensor(X, device="cuda"),
+                    torch.as_tensor(y, device="cuda"))
+                   for X, y in train_iter]
+        with warm:          # no kv round inside: it would wait on the peer
+            tr.warmup(*batches[0])
+        bar.wait(JOIN_S)
+        if w == 0:
+            reset([fa.LAUNCHES, tb.LAUNCHES])
+        bar.wait(JOIN_S)
+        for it in range(R):
+            tr.step(*batches[it % len(batches)])
+        bar.wait(JOIN_S)
+        if w == 0:
+            counts.update(fa.LAUNCHES, **tb.LAUNCHES)
+        trained = tr.leaves
+        acc = eval_acc(test_iter, trained, eval_step, device="cuda")
+        digest = hashlib.sha256(b"".join(l.tobytes() for l in trained))
+        timed = [tr.step_timed(*batches[j % len(batches)])[1]
+                 for j in range(LENET["timed"])]
+        bar.wait(JOIN_S)
+        if w == 0:
+            wan[0] = telemetry.wan_bytes()
+        bar.wait(JOIN_S)
+        t0 = time.perf_counter()
+        for i in range(LENET["thr_rounds"]):
+            tr.step(*batches[i % len(batches)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        bar.wait(JOIN_S)
+        if w == 0:
+            wan[1] = telemetry.wan_bytes()
+        res[w] = dict(acc=acc, digest=digest.hexdigest()[:16], timed=timed,
+                      wall=wall, leaves=tr.leaves,
+                      pipelined=tr.pipelined, batches=len(batches))
+
+    run_hips(torch, np, worker, leaves0, "phase4a", barriers=[bar])
+    img_s = LENET["thr_rounds"] * B * 2 / max(r["wall"] for r in res.values())
+    wan_round = (wan[1] - wan[0]) / LENET["thr_rounds"]
+    print(f"[phase4a] LeNet, 2 parties x 1 worker, {B} images per worker, "
+          f"BSC threshold {LENET['threshold']}, lr {LENET['lr']}, pipelined "
+          f"round {res[0]['pipelined']}, {res[0]['batches']} batches per "
+          f"worker on the card", flush=True)
+    print(f"[phase4a] test accuracy after {R} rounds: worker 0 "
+          f"{res[0]['acc']:.4f}, worker 1 {res[1]['acc']:.4f}; leaves "
+          f"sha256 {res[0]['digest']} / {res[1]['digest']} (cuDNN fp32, "
+          "deterministic: the same on every run)", flush=True)
+    print(f"[phase4a] launches in the {R} rounds (LeNet runs no kernel of "
+          f"the port: cuDNN convolutions, torch.topk) {counts}", flush=True)
+    print(f"[phase4a] {img_s:.1f} img/s over {LENET['thr_rounds']} rounds "
+          f"(both workers), {wan_round:.1f} WAN bytes per round", flush=True)
+    for w in (0, 1):
+        print(f"[phase4a] worker {w} step_timed medians of "
+              f"{LENET['timed']} rounds (ms) {medians(res[w]['timed'])}",
+              flush=True)
+    for w in (0, 1):
+        if res[w]["acc"] < 1.0 - PARITY_TOL_BSC:
+            fail(f"phase4a: worker {w} accuracy {res[w]['acc']} < "
+                 f"{1.0 - PARITY_TOL_BSC}")
+    if not res[0]["pipelined"]:
+        fail("phase4a: the HiPS store did not take the pipelined round")
+    check_replicas(np, [res[0]["leaves"], res[1]["leaves"]], "phase4a")
+    return {"img_s": img_s, "wan_bytes_per_round": wan_round,
+            "acc": [res[0]["acc"], res[1]["acc"]]}
+
+
+def phase4b(torch, np, fa, tb):
+    """The 59M transformer over the same live HiPS (bench_transformer_bsc's
+    settings): losses, launches, the step_timed split with the pipelined
+    round and with the serial round, one profiled round. Returns the
+    flash launches of the counted rounds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from geomx_tpu_torch.examples.transformer_bsc_device import (
+        build_transformer_grad_step, synth_batch)
+    from geomx_tpu_torch.trainer_device import DeviceResidentTrainer
+
+    R = HIPS_TF["rounds"]
+    leaves0, grad_step = build_transformer_grad_step(
+        **MODEL, compute_dtype=torch.bfloat16, device="cuda", attn="auto")
+    warm = threading.Lock()
+    bar = threading.Barrier(2)
+    bar3 = threading.Barrier(3)     # the two workers and this thread
+    res, counts, prof = {}, {}, {}
+
+    def worker(kv, w):
+        tr = DeviceResidentTrainer(
+            list(leaves0), kv, grad_step, threshold=HIPS_TF["threshold"],
+            learning_rate=HIPS_TF["lr"], momentum=HIPS_TF["momentum"],
+            device="cuda")
+        rng = np.random.default_rng(1234 + w)
+        batches = [torch.as_tensor(synth_batch(rng, BATCH, MODEL["seq_len"],
+                                               MODEL["vocab"]), device="cuda")
+                   for _ in range(HIPS_TF["batches"])]
+        with warm:          # no kv round inside: it would wait on the peer
+            tr.warmup(batches[0], None)
+        bar.wait(JOIN_S)
+        if w == 0:
+            reset([fa.LAUNCHES, tb.LAUNCHES])
+        bar.wait(JOIN_S)
+        t0 = time.perf_counter()
+        losses = [tr.step(batches[it % len(batches)], None)
+                  for it in range(R)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        bar.wait(JOIN_S)
+        if w == 0:
+            counts.update(fa.LAUNCHES, **tb.LAUNCHES)
+        on = [tr.step_timed(batches[j % len(batches)], None)[1]
+              for j in range(HIPS_TF["timed"])]
+        tr.pipelined = False        # the serial round: the same state
+        off = [tr.step_timed(batches[j % len(batches)], None)[1]
+               for j in range(HIPS_TF["timed"])]
+        # round wall times, pipelined and serial in turns
+        walls = {True: [], False: []}
+        for _ in range(HIPS_TF["alternations"]):
+            for mode in (True, False, False, True):
+                tr.pipelined = mode
+                t0 = time.perf_counter()
+                tr.step(batches[0], None)
+                torch.cuda.synchronize()
+                walls[mode].append((time.perf_counter() - t0) * 1e3)
+        tr.pipelined = True
+        bar3.wait(JOIN_S)           # this thread starts the profiler
+        bar3.wait(JOIN_S)
+        phases = tr.step_timed(batches[0], None)[1]
+        if w == 0:
+            prof["phases"] = phases
+        bar3.wait(JOIN_S)           # this thread stops it
+        res[w] = dict(losses=losses, wall=wall, on=on, off=off,
+                      walls=walls,
+                      leaves=tr.leaves, k=tr.k, total=tr.total,
+                      chunks=len(tr._chunks))
+
+    def profile_one_round():
+        """One round of both workers under torch.profiler and the host
+        profiler (spans of every role), started and stopped on this (the
+        main) thread."""
+        from geomx_tpu_torch import profiler as hostprof
+        from geomx_tpu_torch import telemetry
+
+        telemetry.enable(True)
+        bar3.wait(JOIN_S)
+        hostprof.reset()
+        hostprof.set_config(aggregate_stats=True)
+        wan0 = telemetry.wan_bytes()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p:
+            t = time.perf_counter()
+            hostprof.set_state("run")
+            bar3.wait(JOIN_S)
+            bar3.wait(JOIN_S)
+            hostprof.set_state("stop")
+            prof["wall"] = (time.perf_counter() - t) * 1e3
+        prof["p"] = p
+        prof["wan"] = telemetry.wan_bytes() - wan0
+        spans = {}
+        for name, us in hostprof.aggregate_stats().items():
+            name = "".join("N" if c.isdigit() else c for c in name)
+            spans[name] = spans.get(name, 0.0) + us / 1e3
+        prof["host"] = sorted(spans.items(), key=lambda kv: -kv[1])[:10]
+        hostprof.reset()
+
+    run_hips(torch, np, worker, leaves0, "phase4b", barriers=[bar, bar3],
+             main_fn=profile_one_round)
+    tok_s = R * BATCH * MODEL["seq_len"] * 2 / max(r["wall"]
+                                                   for r in res.values())
+    print(f"[phase4b] 59M transformer over 2 parties x 1 worker: "
+          f"{res[0]['total']} params, selection {res[0]['k']} per worker, "
+          f"{res[0]['chunks']} chunk(s) per pipelined round", flush=True)
+    for w in (0, 1):
+        print(f"[phase4b] worker {w} losses {res[w]['losses']}", flush=True)
+    print(f"[phase4b] {tok_s:.0f} tokens/s over {R} rounds (both workers)",
+          flush=True)
+    for w in (0, 1):
+        ws = res[w]["walls"]
+        print(f"[phase4b] worker {w} round wall ms, in turns: pipelined "
+              f"{[round(x, 3) for x in ws[True]]} (median "
+              f"{statistics.median(ws[True]):.3f}), serial "
+              f"{[round(x, 3) for x in ws[False]]} (median "
+              f"{statistics.median(ws[False]):.3f})", flush=True)
+    print(f"[phase4b] {prof['wan']:.1f} WAN bytes in the profiled round",
+          flush=True)
+    print("[phase4b] host spans of the profiled round (thread-ms summed "
+          "over every role's threads, key and chunk numbers merged): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in prof["host"]), flush=True)
+    print(f"[phase4b] launches in the {R} counted rounds {counts}",
+          flush=True)
+    for w in (0, 1):
+        print(f"[phase4b] worker {w} step_timed medians of "
+              f"{HIPS_TF['timed']} rounds (ms), pipelined "
+              f"{medians(res[w]['on'])}, serial {medians(res[w]['off'])}",
+              flush=True)
+    tc = profile_summary(prof["p"], prof["wall"], prof["phases"],
+                         "phase4b profile")
+    for w in (0, 1):
+        l = res[w]["losses"]
+        if not all(math.isfinite(x) for x in l):
+            fail(f"phase4b: worker {w} non-finite loss {l}")
+        if not sum(l[-5:]) / 5 < l[0]:
+            fail(f"phase4b: worker {w} loss did not decline: {l}")
+    want = 2 * MODEL["depth"] * R
+    for key in KERNELS:
+        if counts[key] != want:
+            fail(f"phase4b: {key} launched {counts[key]} times in {R} "
+                 f"rounds of 2 workers, expected {want} (8 per step per "
+                 "worker)")
+    if fa.route(torch.bfloat16, MODEL["dim"] // MODEL["heads"]) == 0:
+        fail("phase4b: bf16 does not route to the tensor-core kernels")
+    if tc is not None:
+        for name, n in tc.items():
+            # the profiler window holds both workers' rounds
+            if n != 2 * MODEL["depth"]:
+                fail(f"phase4b profile: {name} ran {n} times in the "
+                     f"round, expected {MODEL['depth']} per worker")
+    check_replicas(np, [res[0]["leaves"], res[1]["leaves"]], "phase4b")
+    return counts
+
+
 def main():
     try:
         import torch
@@ -745,16 +1099,30 @@ def main():
           f"{torch.backends.cuda.matmul.allow_tf32} cudnn.allow_tf32="
           f"{torch.backends.cudnn.allow_tf32}", flush=True)
 
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        print(f"[time] {name} {now - clock[0]:.1f} s", flush=True)
+        clock[0] = now
+
     errs, times, library, dev, library_dev, bnd = phase1(torch, fa)
-    launches, n_params = phase2(torch, np, fa)
+    lap("phase1")
+    _launches, n_params = phase2(torch, np, fa)
+    lap("phase2")
     tb_ms, tb_plain, tb_dev, tb_bound = phase3a(torch, tb, pmesh, n_params)
     phase3b(torch, np, qc, pmesh)
     phase3c(torch, np, qc, pmesh)
     tb_launches = phase3d(torch, np, fa, tb, qc, pmesh)
+    lap("phase3")
+    phase4a(torch, np, fa, tb)
+    lap("phase4a")
+    hips_launches = phase4b(torch, np, fa, tb)
+    lap("phase4b")
 
     table = [{
         "name": name, "route": "cuda", "source": SOURCE, "replaces": where,
-        "launches": launches[key], "max_abs_err": errs[key],
+        "launches": hips_launches[key], "max_abs_err": errs[key],
         "ms": times[key][0], "plain_ms": times[key][1],
         "bound_ms": bnd[key][0], "bound_by": bnd[key][1],
         "library_ms": library[key], "kernel": kernel,

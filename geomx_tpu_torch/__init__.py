@@ -10,9 +10,11 @@ FlashAttention-2 as CUDA kernels, and the device-resident BSC trainer
 (slice 1); the WAN codecs (``compression``), the device compression ops
 with the 2-bit quantize as a CUDA kernel (``ops``), and the intra-party
 tier's quantized ring all-reduce and ``DataParallelTrainer``
-(``parallel``) (slice 2). The HiPS host layers, and with them the
-server-role bootstrap that ``import geomx_tpu`` performs, come in later
-slices (ROADMAP).
+(``parallel``) (slice 2); the HiPS tiers (``ps``, the ``dist*`` stores,
+``simulate.InProcessHiPS``), the trainer's pipelined round, LeNet and its
+data (slice 5). Unlike ``import geomx_tpu``, importing this package never
+enters the server loop: infrastructure roles run
+``python -m geomx_tpu_torch.kvstore_server``.
 """
 
 __version__ = "0.1.0"

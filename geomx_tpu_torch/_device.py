@@ -15,3 +15,13 @@ def resolve_device(device=None) -> torch.device:
                 "to run on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def exact_cudnn() -> None:
+    """Process-wide: cuDNN convolves in true fp32 (no TF32) and by
+    deterministic algorithms only. The reference computes the demo CNN in
+    fp32, and the main path's 200 BSC rounds are chaotic enough that
+    PyTorch's defaults (TF32, non-deterministic backward algorithms) give
+    a different accuracy on every run."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True

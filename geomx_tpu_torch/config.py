@@ -1,0 +1,472 @@
+"""Environment-variable configuration surface.
+
+The reference configures its whole topology and every feature toggle through
+environment variables (reference: docs/source/env-var-summary.rst:1-126, read
+in 3rdparty/ps-lite/src/postoffice.cc:22-53 and src/van.cc:427-477,613-629).
+We keep the same names so reference launch scripts translate 1:1, and add a
+small number of ``GEOMX_*`` vars for TPU-specific knobs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+
+def env_str(name: str, default: str = "") -> str:
+    return os.environ.get(name, default)
+
+
+def env_int(name: str, default: int = 0) -> int:
+    v = os.environ.get(name)
+    if v is None or v == "":
+        return default
+    return int(v)
+
+
+def env_float(name: str, default: float = 0.0) -> float:
+    v = os.environ.get(name)
+    if v is None or v == "":
+        return default
+    return float(v)
+
+
+def resolve_interface_ip(ifname: str) -> str:
+    """IPv4 address of a named NIC (reference: van.cc GetIP — the
+    getifaddrs walk; here the Linux SIOCGIFADDR ioctl, no deps)."""
+    import fcntl
+    import socket
+    import struct
+
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    try:
+        packed = fcntl.ioctl(
+            s.fileno(), 0x8915,  # SIOCGIFADDR
+            struct.pack("256s", ifname[:15].encode()))
+        return socket.inet_ntoa(packed[20:24])
+    except OSError as e:
+        raise ValueError(
+            f"DMLC_INTERFACE={ifname!r}: cannot resolve an IPv4 address "
+            f"({e})") from e
+    finally:
+        s.close()
+
+
+def env_bool(name: str, default: bool = False) -> bool:
+    v = os.environ.get(name)
+    if v is None or v == "":
+        return default
+    return v.strip().lower() not in ("0", "false", "no", "off")
+
+
+# Role constants (reference: postoffice.cc:22-53).
+ROLE_WORKER = "worker"
+ROLE_SERVER = "server"
+ROLE_SCHEDULER = "scheduler"
+ROLE_GLOBAL_SERVER = "global_server"
+ROLE_GLOBAL_SCHEDULER = "global_scheduler"
+
+INFRA_ROLES = (ROLE_SERVER, ROLE_SCHEDULER, ROLE_GLOBAL_SERVER, ROLE_GLOBAL_SCHEDULER)
+
+
+@dataclasses.dataclass
+class Config:
+    """Snapshot of the DMLC_*/ENABLE_*/MXNET_* environment.
+
+    Built fresh via :func:`load` so tests can mutate ``os.environ`` between
+    instantiations.
+    """
+
+    # ---- topology: local (intra-DC) tier ----
+    role: str = ""                      # DMLC_ROLE
+    ps_root_uri: str = "127.0.0.1"      # DMLC_PS_ROOT_URI
+    ps_root_port: int = 9091            # DMLC_PS_ROOT_PORT
+    num_workers: int = 1                # DMLC_NUM_WORKER
+    num_servers: int = 1                # DMLC_NUM_SERVER
+
+    # ---- topology: global (inter-DC) tier ----
+    role_global: str = ""               # DMLC_ROLE_GLOBAL
+    ps_global_root_uri: str = ""        # DMLC_PS_GLOBAL_ROOT_URI
+    ps_global_root_port: int = 0        # DMLC_PS_GLOBAL_ROOT_PORT
+    num_global_workers: int = 0         # DMLC_NUM_GLOBAL_WORKER
+    num_global_servers: int = 0         # DMLC_NUM_GLOBAL_SERVER
+    num_all_workers: int = 1            # DMLC_NUM_ALL_WORKER
+    # number of data-center parties (OUR extension): lets the global
+    # server count FSA rounds exactly when parties run DIFFERENT numbers
+    # of local servers; 0 = infer num_global_workers / party_nsrv
+    # (uniform parties, the reference's implicit assumption)
+    num_parties: int = 0                # DMLC_NUM_PARTY
+    is_master_worker: bool = False      # DMLC_ROLE_MASTER_WORKER
+    enable_central_worker: bool = True  # DMLC_ENABLE_CENTRAL_WORKER
+
+    # ---- node addressing ----
+    interface: str = ""                 # DMLC_INTERFACE
+    node_host: str = ""                 # DMLC_NODE_HOST
+    node_port: int = 0                  # PORT (0 = ephemeral)
+
+    def node_addr(self) -> "tuple[str, str]":
+        """(bind_host, advertise_host) for this node's van.
+
+        Reference semantics (van.cc:427-477 GetIP/GetInterfaceAndIP):
+        DMLC_NODE_HOST names the address peers should dial — the van
+        binds it directly when it is a local address (the reference
+        binds the resolved address, not a wildcard) and falls back to
+        0.0.0.0 only when it is not locally bindable (NAT/VIP: the
+        advertised address lives on a middlebox); otherwise
+        DMLC_INTERFACE names a NIC whose address is resolved and used
+        for both; with neither, loopback (the reference falls back to
+        the default-route interface — a single-host default here, where
+        tests must not accidentally listen on external interfaces).
+        """
+        if self.node_host:
+            import socket
+
+            s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            try:
+                s.bind((self.node_host, 0))
+                return self.node_host, self.node_host
+            except OSError:
+                return "0.0.0.0", self.node_host
+            finally:
+                s.close()
+        if self.interface:
+            ip = resolve_interface_ip(self.interface)
+            return ip, ip
+        return "127.0.0.1", "127.0.0.1"
+
+    # ---- feature toggles (reference: van.cc:539-549, 613-629) ----
+    enable_p3: bool = False             # ENABLE_P3
+    enable_dgt: int = 0                 # ENABLE_DGT in {0,1,2,3}
+    udp_channel_num: int = 0            # DMLC_UDP_CHANNEL_NUM
+    dgt_block_size: int = 4096          # DGT_BLOCK_SIZE
+    dgt_contri_alpha: float = 0.3       # DGT_CONTRI_ALPHA
+    dmlc_k: float = 0.8                 # DMLC_K (fraction of blocks sent reliably)
+    dmlc_k_min: float = 0.2             # DMLC_K_MIN
+    adaptive_k_flag: bool = False       # ADAPTIVE_K_FLAG
+    dgt_grace_ms: int = 100             # DGT_GRACE_MS (straggler window, ours)
+    enable_intra_ts: bool = False       # ENABLE_INTRA_TS
+    enable_inter_ts: bool = False       # ENABLE_INTER_TS
+    max_greed_rate_ts: float = 0.9      # MAX_GREED_RATE_TS
+
+    # ---- algorithm knobs (reference: kvstore_dist_server.h:181-187) ----
+    use_hfa: bool = False               # MXNET_KVSTORE_USE_HFA
+    hfa_k1: int = 1                     # MXNET_KVSTORE_HFA_K1 (local steps)
+    hfa_k2: int = 1                     # MXNET_KVSTORE_HFA_K2 (global period)
+    size_lower_bound: int = 200000      # MXNET_KVSTORE_SIZE_LOWER_BOUND (MPQ)
+    bigarray_bound: int = 1000000       # MXNET_KVSTORE_BIGARRAY_BOUND
+
+    # ---- transport knobs ----
+    resend: bool = False                # PS_RESEND
+    resend_timeout_ms: int = 1000       # PS_RESEND_TIMEOUT
+    heartbeat_interval_s: int = 0       # PS_HEARTBEAT_INTERVAL (0 = off)
+    heartbeat_timeout_s: int = 60       # PS_HEARTBEAT_TIMEOUT
+    drop_rate: float = 0.0              # PS_DROP_MSG (fault injection)
+    # ---- robustness knobs (ours; see docs/robustness.md) ----
+    # seed for EVERY transport RNG (drop injection, fault plans, resend
+    # jitter); -1 = unseeded (wall-clock entropy, the old behavior)
+    ps_seed: int = -1                   # PS_SEED
+    # chaos plan: inline JSON, or "@/path/to/plan.json"
+    fault_plan: str = ""                # PS_FAULT_PLAN
+    # per-link RTT/bandwidth shaping topology (ps/shaping.py): inline
+    # JSON or "@/path/to/plan.json"; canonical plans in scripts/shapes/
+    shape_plan: str = ""                # GEOMX_SHAPE_PLAN
+    # jitter-stream seed for the shaper; -1 defers to the plan's
+    # embedded "seed", then PS_SEED (same precedence as fault plans)
+    shape_seed: int = -1                # GEOMX_SHAPE_SEED
+    # overall per-request retransmit deadline (seconds); a request
+    # unACKed past this raises TimeoutError at the issuing customer.
+    # 0 = no deadline (retry-count cap only, the old behavior)
+    resend_deadline_s: float = 0.0      # PS_RESEND_DEADLINE
+    resend_backoff_max_s: float = 30.0  # PS_RESEND_BACKOFF_MAX (cap)
+    resend_jitter: float = 0.1          # PS_RESEND_JITTER (+- fraction)
+    # server state snapshots: directory ("" = off) + tick interval
+    snapshot_dir: str = ""              # PS_SNAPSHOT_DIR
+    snapshot_interval_s: float = 5.0    # PS_SNAPSHOT_INTERVAL
+    # multi-server tiers: replicate snapshot deltas to the next-rank
+    # peer so a dead server's replacement can restore without a disk
+    replicate: bool = True              # PS_REPLICATE
+    # elastic membership: how long (seconds) a heartbeat lapse must
+    # persist past PS_HEARTBEAT_TIMEOUT before the scheduler DECLARES
+    # the node dead (epoch bump + DEAD_NODE broadcast); 0 = declare as
+    # soon as the lapse is observed. Requires PS_HEARTBEAT_INTERVAL > 0.
+    epoch_grace_s: float = 0.0          # PS_EPOCH_GRACE
+    # bounded per-chunk retry budget for the async chunked rounds
+    # (push_pull_async / push_pull_bsc_batch_async): a failed chunk is
+    # re-issued up to this many times before its give-up error surfaces
+    # through the RoundFuture; 0 = no retries (the old behavior)
+    chunk_retries: int = 0              # PS_CHUNK_RETRIES
+    # runtime wire sanitizer (ps/sanitizer.py): every van checks
+    # request/ack pairing, countdown leaks, epoch monotonicity and
+    # sends-to-dead on its own traffic, and reports at stop(); the
+    # dynamic dual of the GX-P3xx protocol pass. Test/chaos-matrix aid
+    wire_sanitizer: bool = False        # GEOMX_WIRE_SANITIZER
+    # runtime lock/race sanitizer (ps/locks.py): traced lock primitives
+    # feed a process-global witness that flags lock-order inversions,
+    # blocking calls under a lock, Condition.wait with other locks held
+    # and unguarded writes to @guarded_by fields; the dynamic dual of
+    # the GX-L005..L007 lockmodel pass. Off-path cost is one branch at
+    # lock construction. Test/chaos-matrix aid
+    lock_sanitizer: bool = False        # GEOMX_LOCK_SANITIZER
+    # runtime state-model conformance sanitizer (ps/conformance.py):
+    # mirrors membership/epoch/recovery transitions through the
+    # executable protocol model (tools/analyze/statemodel.py) and flags
+    # any divergence between the live van and the model — the dynamic
+    # dual of the GX-S50x statemodel pass and the third leg of the
+    # one-model-two-enforcers planes. Test/chaos-matrix aid
+    state_sanitizer: bool = False       # GEOMX_STATE_SANITIZER
+    # deterministic registration rank for this process's local-tier van
+    # (Node.sort_key). Rendezvous ties otherwise break on ephemeral
+    # bind-port order, so WHICH worker gets local id 9 is a coin flip —
+    # launch scripts that target a specific worker by id (chaos matrix
+    # worker-kill) pin it per process. -1 keeps the port-order default
+    sort_key: int = -1                  # PS_SORT_KEY
+    # ---- telemetry / flight recorder (ours; docs/observability.md) ----
+    # metrics registry (geomx_tpu_torch/telemetry.py): labeled counters/gauges/
+    # histograms fed by the van, resender, servers and round futures;
+    # near-free when off. Snapshots export per round when telemetry_dir
+    # is set, and are pullable over the command channel via kv.metrics()
+    telemetry: bool = False             # GEOMX_TELEMETRY
+    telemetry_dir: str = ""             # GEOMX_TELEMETRY_DIR ("" = no export)
+    # crash flight recorder (ps/flightrec.py): always-on bounded ring of
+    # recent wire/membership events per van, auto-dumped on crash,
+    # round abort/timeout and sanitizer violations. 0 disables the ring
+    flightrec_size: int = 256           # GEOMX_FLIGHTREC_SIZE
+    flightrec_dir: str = ""             # GEOMX_FLIGHTREC_DIR ($TMPDIR/geomx_flightrec)
+    # live cluster health plane (ps/linkstate.py): every van estimates
+    # per-(src,dst) RTT/goodput from send->ack spans (needs PS_RESEND=1
+    # for ACKs) and piggybacks a digest on HEARTBEAT frames; schedulers
+    # aggregate into a ClusterHealthBoard with straggler / link-degradation
+    # / epoch-stall detectors, queryable via kv.health() and exported
+    # per-round to GEOMX_HEALTH_DIR (tools/geomx_top.py renders it live)
+    health: bool = False                # GEOMX_HEALTH
+    health_dir: str = ""                # GEOMX_HEALTH_DIR ("" = no export)
+    health_window: int = 16             # GEOMX_HEALTH_WINDOW (samples/link)
+    # degradation fires when windowed bw < factor * its own EWMA baseline
+    health_degrade_factor: float = 0.5  # GEOMX_HEALTH_DEGRADE_FACTOR
+    # straggler fires when a node's round progress lags the cluster max
+    # by >= straggler_rounds for straggler_persist consecutive digests
+    health_straggler_rounds: int = 1    # GEOMX_HEALTH_STRAGGLER_ROUNDS
+    health_straggler_persist: int = 3   # GEOMX_HEALTH_STRAGGLER_PERSIST
+    # link marked lossy when >= this many retransmits land within 2 s
+    health_rtx_burst: int = 5           # GEOMX_HEALTH_RTX_BURST
+    health_stall_s: float = 30.0        # GEOMX_HEALTH_STALL_S (epoch stall)
+    # ---- self-tuning transport (ours; docs/adaptive-transport.md) ----
+    # close the loop from the health plane to the transport knobs
+    # (kvstore/controller.py): per-link per-round codec choice (fp16 on
+    # fat links, 2bit/mpq on thin ones, hysteresis against flapping),
+    # P3 chunk budget from the measured BDP, TSEngine schedule bias away
+    # from degraded links. Requires GEOMX_HEALTH=1 (the sensor) and
+    # PS_RESEND=1 (estimates come from send->ack spans); off = today's
+    # static env-var behavior bit-for-bit
+    transport_controller: bool = False  # GEOMX_TRANSPORT_CONTROLLER
+    # link classification thresholds: measured bw below thin -> 2bit/mpq,
+    # at/above fat -> fp16, in between -> keep the current assignment (a
+    # measured-but-unclassified link defaults to fp16: the fp16 floor)
+    ctrl_thin_mbps: float = 15.0        # GEOMX_CTRL_THIN_MBPS
+    ctrl_fat_mbps: float = 150.0        # GEOMX_CTRL_FAT_MBPS
+    # hysteresis: a codec change needs this many consecutive rounds of
+    # the same differing proposal (detector-latched degradation bypasses)
+    ctrl_persist: int = 2               # GEOMX_CTRL_PERSIST
+    # noise floor: a dip/spike from a healthy baseline only counts as
+    # evidence past this many sigmas of the link's own learned wander
+    ctrl_noise_sigma: float = 2.0       # GEOMX_CTRL_NOISE_SIGMA
+    # slice budget re-publishes only on a > this fractional BDP move
+    ctrl_slice_hold: float = 0.25       # GEOMX_CTRL_SLICE_HOLD
+    # links with measured RTT under this floor never drive the live
+    # slice budget (loopback BDPs would shrink chunking pointlessly)
+    ctrl_rtt_floor_ms: float = 1.0      # GEOMX_CTRL_RTT_FLOOR_MS
+    verbose: int = 0                    # PS_VERBOSE
+    # the reference makes its transport deadlines
+    # env-tunable (van.cc:527-533 PS_RESEND_TIMEOUT / heartbeat envs);
+    # our barrier and per-op deadlines were constants, and a 59M-param
+    # bootstrap over a ~5 MB/s tunnel blows a hard-coded 600 s barrier
+    barrier_timeout_s: float = 600.0    # PS_BARRIER_TIMEOUT
+    op_timeout_s: float = 300.0         # PS_OP_TIMEOUT (push/pull/wait)
+
+    # ---- pipelined round (ours; PERF.md "pipelined round") ----
+    # P3 chunk budget in BYTES for the async chunked combined wire
+    # (KVStoreDist.push_pull_async / push_pull_bsc_batch_async): the key
+    # set is greedily grouped in layer order into ~this many bytes per
+    # chunk — and dense keys above it are sliced at _shards granularity —
+    # each chunk one message per server, flowing independently at
+    # descending priority. 0 = one chunk (the batched wire);
+    # -1 = auto-size to the shaped topology's worst-link BDP
+    # (frontier.auto_slice_bytes over GEOMX_SHAPE_PLAN).
+    p3_slice_bytes: int = 0             # P3_SLICE_BYTES
+    # trainer-side overlap switch: per-chunk dispatch/apply in
+    # DeviceResidentTrainer and the deferred round barrier in Trainer
+    # (the barrier moves to the point of first use, not away)
+    overlap: bool = True                # GEOMX_OVERLAP
+
+    # ---- mesh-party tier (ours; docs/mesh-party.md) ----
+    # form a GSPMD party mesh over the local devices and aggregate
+    # intra-party gradients with a psum fused into the jitted train
+    # step instead of the LAN PS hop; the van then carries only the
+    # single global worker's traffic to the WAN tier. With this on,
+    # kv.create("dist_sync") behaves as "dist_sync_mesh".
+    party_mesh: bool = False            # GEOMX_PARTY_MESH
+    # devices per party mesh; 0 = every local device. On a shared host
+    # (tests/bench: 8 virtual CPU devices, 2 parties) each party takes
+    # a disjoint slice of this size
+    party_mesh_size: int = 0            # GEOMX_PARTY_MESH_SIZE
+    # quantized mesh collective (EQuARX proper): codec for the
+    # intra-party all-reduce INSIDE the jitted step — "none" keeps the
+    # fp32 psum byte-for-byte; "int8" (block-scaled ring), "2bit"
+    # (error-feedback ring), "fp16" replace it with the shard_map +
+    # ppermute ring of parallel/quant_collectives.py
+    mesh_codec: str = "none"            # GEOMX_MESH_CODEC
+    # block size for the int8 mesh codec's power-of-two block scales
+    mesh_block: int = 256               # GEOMX_MESH_BLOCK
+    # multi-host mesh (run_mesh_multihost.sh): when set, the mesh
+    # worker calls jax.distributed.initialize(coordinator, nprocs,
+    # procid) before building the party mesh, and the GLOBAL worker is
+    # the one with jax.process_index() == 0 instead of local rank 0
+    mesh_coordinator: str = ""          # GEOMX_MESH_COORDINATOR (host:port)
+    mesh_num_processes: int = 0         # GEOMX_MESH_NUM_PROCS (0 = single)
+    mesh_process_id: int = -1           # GEOMX_MESH_PROC_ID
+
+    # ---- quantized combined wire (ours; docs/env-var-summary.md
+    # "Quantized wire" + PERF.md "quantized wire") ----
+    # per-chunk wire codec for the async combined rounds
+    # (push_pull_async / push_pull_bsc_batch_async): "" = raw fp32 (off),
+    # "fp16", "2bit", "mpq" (chunk >= size_lower_bound elems -> 2bit,
+    # else fp16), "p3" (head chunk fp16, tail chunks mpq-routed). The
+    # server echoes the requester's codec on combined-wire responses and
+    # re-quantizes WAN forwards with it (2-bit error-feedback residuals
+    # per (key, offset) on both sides).
+    wire_codec: str = ""                # GEOMX_WIRE_CODEC
+    # per-tier override for the party server's WAN forward leg; "" =
+    # follow the codec the worker's push arrived with
+    wire_codec_wan: str = ""            # GEOMX_WIRE_CODEC_WAN
+    # threshold for the wire 2-bit codec (codes are {0, +thr, -thr};
+    # the un-sent remainder stays in the residual)
+    wire_2bit_threshold: float = 0.5    # GEOMX_WIRE_2BIT_THRESHOLD
+
+    # ---- TPU-specific ----
+    van_type: str = "auto"              # GEOMX_VAN in {auto, python, native}
+    platform: str = ""                  # GEOMX_PLATFORM override for jax
+
+    @property
+    def is_worker(self) -> bool:
+        return self.role == ROLE_WORKER
+
+    @property
+    def is_server(self) -> bool:
+        return self.role == ROLE_SERVER
+
+    @property
+    def is_scheduler(self) -> bool:
+        return self.role == ROLE_SCHEDULER
+
+    @property
+    def is_global_server(self) -> bool:
+        return self.role_global == ROLE_GLOBAL_SERVER
+
+    @property
+    def is_global_scheduler(self) -> bool:
+        return self.role_global == ROLE_GLOBAL_SCHEDULER
+
+    @property
+    def has_global_tier(self) -> bool:
+        return bool(self.ps_global_root_uri) and self.num_global_servers > 0
+
+    @property
+    def is_distributed(self) -> bool:
+        return bool(self.role) or bool(self.role_global)
+
+
+def load() -> Config:
+    """Read the configuration from os.environ (reference: postoffice.cc:22-53)."""
+    return Config(
+        role=env_str("DMLC_ROLE"),
+        ps_root_uri=env_str("DMLC_PS_ROOT_URI", "127.0.0.1"),
+        ps_root_port=env_int("DMLC_PS_ROOT_PORT", 9091),
+        num_workers=env_int("DMLC_NUM_WORKER", 1),
+        num_servers=env_int("DMLC_NUM_SERVER", 1),
+        role_global=env_str("DMLC_ROLE_GLOBAL"),
+        ps_global_root_uri=env_str("DMLC_PS_GLOBAL_ROOT_URI"),
+        ps_global_root_port=env_int("DMLC_PS_GLOBAL_ROOT_PORT", 0),
+        num_global_workers=env_int("DMLC_NUM_GLOBAL_WORKER", 0),
+        num_global_servers=env_int("DMLC_NUM_GLOBAL_SERVER", 0),
+        num_all_workers=env_int("DMLC_NUM_ALL_WORKER", env_int("DMLC_NUM_WORKER", 1)),
+        num_parties=env_int("DMLC_NUM_PARTY", 0),
+        is_master_worker=env_bool("DMLC_ROLE_MASTER_WORKER"),
+        enable_central_worker=env_bool("DMLC_ENABLE_CENTRAL_WORKER", True),
+        interface=env_str("DMLC_INTERFACE"),
+        node_host=env_str("DMLC_NODE_HOST"),
+        node_port=env_int("PORT", 0),
+        enable_p3=env_bool("ENABLE_P3"),
+        enable_dgt=env_int("ENABLE_DGT", 0),
+        udp_channel_num=env_int("DMLC_UDP_CHANNEL_NUM", 0),
+        dgt_block_size=env_int("DGT_BLOCK_SIZE", 4096),
+        dgt_contri_alpha=env_float("DGT_CONTRI_ALPHA", 0.3),
+        dmlc_k=env_float("DMLC_K", 0.8),
+        dmlc_k_min=env_float("DMLC_K_MIN", 0.2),
+        adaptive_k_flag=env_bool("ADAPTIVE_K_FLAG"),
+        dgt_grace_ms=env_int("DGT_GRACE_MS", 100),
+        enable_intra_ts=env_bool("ENABLE_INTRA_TS"),
+        enable_inter_ts=env_bool("ENABLE_INTER_TS"),
+        max_greed_rate_ts=env_float("MAX_GREED_RATE_TS", 0.9),
+        use_hfa=env_bool("MXNET_KVSTORE_USE_HFA"),
+        hfa_k1=env_int("MXNET_KVSTORE_HFA_K1", 1),
+        hfa_k2=env_int("MXNET_KVSTORE_HFA_K2", 1),
+        size_lower_bound=env_int("MXNET_KVSTORE_SIZE_LOWER_BOUND", 200000),
+        bigarray_bound=env_int("MXNET_KVSTORE_BIGARRAY_BOUND", 1000000),
+        resend=env_bool("PS_RESEND"),
+        resend_timeout_ms=env_int("PS_RESEND_TIMEOUT", 1000),
+        heartbeat_interval_s=env_int("PS_HEARTBEAT_INTERVAL", 0),
+        heartbeat_timeout_s=env_int("PS_HEARTBEAT_TIMEOUT", 60),
+        drop_rate=env_float("PS_DROP_MSG", 0.0),
+        ps_seed=env_int("PS_SEED", -1),
+        fault_plan=env_str("PS_FAULT_PLAN"),
+        shape_plan=env_str("GEOMX_SHAPE_PLAN"),
+        shape_seed=env_int("GEOMX_SHAPE_SEED", -1),
+        resend_deadline_s=env_float("PS_RESEND_DEADLINE", 0.0),
+        resend_backoff_max_s=env_float("PS_RESEND_BACKOFF_MAX", 30.0),
+        resend_jitter=env_float("PS_RESEND_JITTER", 0.1),
+        snapshot_dir=env_str("PS_SNAPSHOT_DIR"),
+        snapshot_interval_s=env_float("PS_SNAPSHOT_INTERVAL", 5.0),
+        replicate=env_bool("PS_REPLICATE", True),
+        epoch_grace_s=env_float("PS_EPOCH_GRACE", 0.0),
+        chunk_retries=env_int("PS_CHUNK_RETRIES", 0),
+        wire_sanitizer=env_bool("GEOMX_WIRE_SANITIZER"),
+        lock_sanitizer=env_bool("GEOMX_LOCK_SANITIZER"),
+        state_sanitizer=env_bool("GEOMX_STATE_SANITIZER"),
+        sort_key=env_int("PS_SORT_KEY", -1),
+        telemetry=env_bool("GEOMX_TELEMETRY"),
+        telemetry_dir=env_str("GEOMX_TELEMETRY_DIR"),
+        flightrec_size=env_int("GEOMX_FLIGHTREC_SIZE", 256),
+        flightrec_dir=env_str("GEOMX_FLIGHTREC_DIR"),
+        health=env_bool("GEOMX_HEALTH"),
+        health_dir=env_str("GEOMX_HEALTH_DIR"),
+        health_window=env_int("GEOMX_HEALTH_WINDOW", 16),
+        health_degrade_factor=env_float("GEOMX_HEALTH_DEGRADE_FACTOR", 0.5),
+        health_straggler_rounds=env_int("GEOMX_HEALTH_STRAGGLER_ROUNDS", 1),
+        health_straggler_persist=env_int("GEOMX_HEALTH_STRAGGLER_PERSIST", 3),
+        health_rtx_burst=env_int("GEOMX_HEALTH_RTX_BURST", 5),
+        health_stall_s=env_float("GEOMX_HEALTH_STALL_S", 30.0),
+        transport_controller=env_bool("GEOMX_TRANSPORT_CONTROLLER"),
+        ctrl_thin_mbps=env_float("GEOMX_CTRL_THIN_MBPS", 15.0),
+        ctrl_fat_mbps=env_float("GEOMX_CTRL_FAT_MBPS", 150.0),
+        ctrl_persist=env_int("GEOMX_CTRL_PERSIST", 2),
+        ctrl_noise_sigma=env_float("GEOMX_CTRL_NOISE_SIGMA", 2.0),
+        ctrl_slice_hold=env_float("GEOMX_CTRL_SLICE_HOLD", 0.25),
+        ctrl_rtt_floor_ms=env_float("GEOMX_CTRL_RTT_FLOOR_MS", 1.0),
+        verbose=env_int("PS_VERBOSE", 0),
+        barrier_timeout_s=env_float("PS_BARRIER_TIMEOUT", 600.0),
+        op_timeout_s=env_float("PS_OP_TIMEOUT", 300.0),
+        p3_slice_bytes=env_int("P3_SLICE_BYTES", 0),
+        overlap=env_bool("GEOMX_OVERLAP", True),
+        party_mesh=env_bool("GEOMX_PARTY_MESH"),
+        party_mesh_size=env_int("GEOMX_PARTY_MESH_SIZE", 0),
+        mesh_codec=env_str("GEOMX_MESH_CODEC", "none"),
+        mesh_block=env_int("GEOMX_MESH_BLOCK", 256),
+        mesh_coordinator=env_str("GEOMX_MESH_COORDINATOR"),
+        mesh_num_processes=env_int("GEOMX_MESH_NUM_PROCS", 0),
+        mesh_process_id=env_int("GEOMX_MESH_PROC_ID", -1),
+        wire_codec=env_str("GEOMX_WIRE_CODEC"),
+        wire_codec_wan=env_str("GEOMX_WIRE_CODEC_WAN"),
+        wire_2bit_threshold=env_float("GEOMX_WIRE_2BIT_THRESHOLD", 0.5),
+        van_type=env_str("GEOMX_VAN", "auto"),
+        platform=env_str("GEOMX_PLATFORM"),
+    )

@@ -6,8 +6,11 @@ transformer (dim 512, depth 8, heads 8, vocab 32768, seq 512 by default)
 trains through :class:`DeviceResidentTrainer` — parameters never leave
 the card; the host link carries only the per-tensor BSC top-k selection
 down and the aggregated nonzeros up. Attention is FlashAttention-2, the
-CUDA kernels of ``geomx_tpu_torch/ops``. So far only the single-process
-local store is ported, so ``--local`` is required:
+CUDA kernels of ``geomx_tpu_torch/ops``. Without ``--local`` it is one
+worker of a live HiPS topology (``dist_sync``: ``DMLC_*`` roles, the
+infrastructure roles run ``python -m geomx_tpu_torch.kvstore_server``;
+the master worker initialises the keys and returns); with ``--local`` it
+runs alone on the single-process store:
 
   python -m geomx_tpu_torch.examples.transformer_bsc_device --local --max-iters 5
 
@@ -45,7 +48,8 @@ def build_transformer_grad_step(dim, depth, heads, vocab, seq_len,
     ``attn`` is a :func:`make_attention` name or an attention callable."""
     from geomx_tpu_torch._device import resolve_device
     from geomx_tpu_torch.models.convert import (flax_leaves, leaf_names,
-                                                load_flax_leaves)
+                                                load_flax_leaves,
+                                                thread_safe_call)
     from geomx_tpu_torch.models.transformer import (Transformer,
                                                     make_attention)
 
@@ -58,13 +62,13 @@ def build_transformer_grad_step(dim, depth, heads, vocab, seq_len,
     if init_leaves is not None:
         load_flax_leaves(model, init_leaves)
     leaves = flax_leaves(model)
-    model.to(dev)
     names = leaf_names(model)
+    call = thread_safe_call(model.to(dev))
 
     def loss_fn(leaf_list, toks):
         params = dict(zip(names, leaf_list))
         toks = toks.long()
-        logits = torch.func.functional_call(model, params, (toks[:, :-1],))
+        logits = call(params, toks[:, :-1])
         logp = torch.log_softmax(logits, dim=-1)
         return -logp.gather(-1, toks[:, 1:, None]).mean()
 
@@ -113,6 +117,11 @@ def main(argv=None):
         args.dim, args.depth, args.heads, args.vocab, args.seq_len,
         device=device)
     n_params = sum(l.size for l in leaves)
+    if getattr(kv, "is_master_worker", False):
+        for idx, leaf in enumerate(leaves):
+            kv.init(idx, leaf)
+        kv.wait()
+        return
 
     tr = DeviceResidentTrainer(
         leaves, kv, grad_step, threshold=args.compression_ratio,

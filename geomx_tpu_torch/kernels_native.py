@@ -1,0 +1,142 @@
+"""ctypes bindings for the native aggregation/optimizer kernels.
+
+Counterpart of the reference's C++ server math (reference:
+kvstore_dist_server.h:1296 ``merged += recved`` runs as engine-scheduled
+elemwise kernels; optimizer steps are C++ for built-ins). numpy holds the
+GIL for these op sizes, so the per-key-locked server still serializes on
+math; ctypes releases the GIL for the call's duration, restoring thread
+scaling (tools/server_bench.py shows the difference).
+
+Same build-on-demand pattern as ps/native.py (g++, atomic rename): the
+source is ``geomx_tpu_torch/native/kernels.cc``, the library lands in the
+package's ``_build/``.
+Disable with GEOMX_NATIVE_KERNELS=0; everything falls back to numpy.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import logging
+import os
+import subprocess
+import threading
+from typing import Optional
+
+import numpy as np
+
+log = logging.getLogger("geomx.kernels")
+
+# the source ships inside the package; the library is built beside the
+# CUDA kernels in the package's gitignored _build/ directory
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+_SRC_PATH = os.path.join(_PKG_DIR, "native", "kernels.cc")
+_LIB_PATH = os.path.join(_PKG_DIR, "_build", "libgeomx_kernels.so")
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+_failed = False
+
+_f32p = ctypes.POINTER(ctypes.c_float)
+
+
+def enabled() -> bool:
+    return os.environ.get("GEOMX_NATIVE_KERNELS", "1") not in ("0", "false")
+
+
+def _build() -> None:
+    os.makedirs(os.path.dirname(_LIB_PATH), exist_ok=True)
+    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
+    cmd = ["g++", "-O3", "-std=c++17", "-fPIC", "-Wall", "-shared",
+           "-o", tmp, _SRC_PATH]
+    try:
+        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, _LIB_PATH)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def lib() -> Optional[ctypes.CDLL]:
+    global _lib, _failed
+    if _lib is not None:
+        return _lib
+    if _failed or not enabled():
+        return None
+    with _lock:
+        if _lib is not None or _failed:
+            return _lib
+        try:
+            if not os.path.exists(_LIB_PATH) or (
+                    os.path.exists(_SRC_PATH) and os.path.getmtime(_SRC_PATH)
+                    > os.path.getmtime(_LIB_PATH)):
+                _build()
+            L = ctypes.CDLL(_LIB_PATH)
+        except (OSError, subprocess.SubprocessError) as e:
+            _failed = True
+            log.warning("native kernels unavailable (%s); using numpy", e)
+            return None
+        i64 = ctypes.c_int64
+        f32 = ctypes.c_float
+        L.gxk_acc.restype = None
+        L.gxk_acc.argtypes = [_f32p, _f32p, i64]
+        L.gxk_copy.restype = None
+        L.gxk_copy.argtypes = [_f32p, _f32p, i64]
+        L.gxk_scale_acc.restype = None
+        L.gxk_scale_acc.argtypes = [_f32p, f32, _f32p, i64]
+        L.gxk_sgd.restype = None
+        L.gxk_sgd.argtypes = [_f32p, _f32p, _f32p, f32, f32, f32, i64]
+        L.gxk_adam.restype = None
+        L.gxk_adam.argtypes = [_f32p, _f32p, _f32p, _f32p, f32, f32, f32,
+                               f32, f32, i64, i64]
+        _lib = L
+        return _lib
+
+
+def _ptr(a: np.ndarray):
+    return a.ctypes.data_as(_f32p)
+
+
+def _eligible(*arrays) -> bool:
+    return all(a.dtype == np.float32 and a.flags.c_contiguous
+               for a in arrays)
+
+
+# arrays below ~16k elements: the ctypes call overhead beats the GIL win
+MIN_N = 16_384
+
+
+def usable(n: int) -> bool:
+    """Cheap pre-check so callers can skip preparatory copies when the
+    native path will reject anyway (small array or no library)."""
+    return n >= MIN_N and lib() is not None
+
+
+def acc(dst: np.ndarray, src: np.ndarray) -> bool:
+    """dst += src natively; False -> caller should use numpy."""
+    L = lib()
+    if L is None or dst.size < MIN_N or not _eligible(dst, src):
+        return False
+    L.gxk_acc(_ptr(dst), _ptr(src), dst.size)
+    return True
+
+
+def sgd(w: np.ndarray, g: np.ndarray, mom: Optional[np.ndarray],
+        lr: float, momentum: float, wd: float) -> bool:
+    L = lib()
+    if L is None or w.size < MIN_N or not _eligible(
+            w, g, *( [mom] if mom is not None else [] )):
+        return False
+    L.gxk_sgd(_ptr(w), _ptr(g), _ptr(mom) if mom is not None else None,
+              lr, momentum, wd, w.size)
+    return True
+
+
+def adam(w: np.ndarray, g: np.ndarray, m: np.ndarray, v: np.ndarray,
+         lr: float, b1: float, b2: float, eps: float, wd: float,
+         t: int) -> bool:
+    L = lib()
+    if L is None or w.size < MIN_N or not _eligible(w, g, m, v):
+        return False
+    L.gxk_adam(_ptr(w), _ptr(g), _ptr(m), _ptr(v), lr, b1, b2, eps, wd,
+               t, w.size)
+    return True

@@ -3,7 +3,8 @@
 Counterpart of ``geomx_tpu/kvstore/base.py``: the user-facing KVStore
 surface of GeoMX's ``mx.kv`` (``init``, ``push(..., priority=)``,
 ``pull``, ``set_optimizer``, ``set_gradient_compression``, ``barrier``,
-``rank`` / ``num_workers`` / ``num_all_workers`` / ``is_master_worker``).
+``rank`` / ``num_workers`` / ``num_all_workers`` / ``is_master_worker``),
+and the server command numbers of the shared wire.
 
 Values are array-likes (numpy, or torch tensors on any device); push
 accepts a single array or a list of per-device arrays which are summed
@@ -17,7 +18,7 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 
 
-# Server command channel (same numbering as the JAX package's wire).
+# Server command channel (reference: src/kvstore/kvstore_dist_server.h:46-52).
 class Command:
     CONTROLLER = 1                # body = pickled optimizer
     STOP_SERVER = 2
@@ -30,11 +31,22 @@ class Command:
     GET_OPTIMIZER_STATES = 9      # fetch the server-side updater's states
     SET_OPTIMIZER_STATES = 10     # restore the server-side updater's states
     ESYNC_STATE = 11              # ESync state-server report -> step count
+    #                               (beyond parity: reference README.md:45
+    #                               documents ESync but ships no code)
     REPLICA_UPDATE = 12           # server -> peer server: snapshot delta
+    #                               (durable recovery; docs/robustness.md)
     REPLICA_FETCH = 13            # recovering server <- peer: full replica
     METRICS = 14                  # worker <- server: telemetry snapshot JSON
     HEALTH = 15                   # worker <- scheduler: cluster health board
+    #                               JSON (ps/linkstate.py; the value mirrors
+    #                               linkstate.HEALTH_CMD — answered at the
+    #                               VAN level because scheduler Postoffices
+    #                               have no customers)
 
+
+# Data-plane cmd values carried in push meta.head.
+DATA_DEFAULT = 0
+DATA_INIT = 1                     # initialization push (kv.init), never a gradient
 
 
 ArrayLike = Any  # numpy arrays / torch tensors
@@ -58,7 +70,7 @@ def _sum_values(value: Union[ArrayLike, Sequence[ArrayLike]]) -> np.ndarray:
 
 
 class KVStore:
-    """Abstract key-value store."""
+    """Abstract key-value store (reference: include/mxnet/kvstore.h:59)."""
 
     def __init__(self):
         self._compression_params: Optional[Dict] = None
@@ -75,12 +87,12 @@ class KVStore:
 
     @property
     def num_all_workers(self) -> int:
-        """Total trainers across every party."""
+        """Total trainers across every party (kvstore.py:541)."""
         return self.num_workers
 
     @property
     def is_master_worker(self) -> bool:
-        """True on the central party's master worker."""
+        """True on the central party's master worker (kvstore.py:554)."""
         return False
 
     @property
@@ -99,7 +111,9 @@ class KVStore:
         raise NotImplementedError
 
     def push_pull(self, key, value, out, priority: int = 0) -> None:
-        """Combined push+pull; the base behavior is the two-op sequence."""
+        """Combined push+pull (reference: ZPushPull, kv_app.h:140).
+        The base behavior is the two-op sequence; KVStoreDist overrides
+        it with the one-message-per-server combined wire."""
         self.push(key, value, priority=priority)
         self.pull(key, out=out, priority=priority)
 
@@ -121,12 +135,12 @@ class KVStore:
 
     def save_optimizer_states(self, fname: str) -> None:
         raise NotImplementedError(
-            "optimizer-state checkpoints need geomx_tpu_torch.checkpoint, "
+            "optimizer-state checkpoints need geomx_tpu_torch.optimizer, "
             "which is not ported yet (ROADMAP queue A item 4)")
 
     def load_optimizer_states(self, fname: str) -> None:
         raise NotImplementedError(
-            "optimizer-state checkpoints need geomx_tpu_torch.checkpoint, "
+            "optimizer-state checkpoints need geomx_tpu_torch.optimizer, "
             "which is not ported yet (ROADMAP queue A item 4)")
 
     def barrier(self, is_global: bool = False) -> None:

@@ -1,0 +1,383 @@
+"""Async round frontier: per-key futures + P3 chunk planning.
+
+The combined wire (ZPushPull, one message per server per round)
+made the protocol cheap but left it a single barrier: the trainer
+dispatches everything, then blocks in ``wait()`` until the last byte of
+the last key is back. P3 (priority-based parameter propagation with
+tensor slicing — reference: P3_EncodeDefaultKey, kvstore_dist.h:768-805
++ the priority send thread, van.cc:548,851) exists precisely to break
+that barrier: split the round into priority-ordered chunks so each
+chunk's D2H fetch, wire send, and response flow independently, and let
+the caller consume results per chunk as they land.
+
+This module holds the two store-agnostic pieces:
+
+- :func:`plan_chunks` — greedy layer-order grouping of sized items into
+  ~budget-byte chunks, chunk index descending into priority (layer
+  order = priority, the P3 scheduling rule: earlier layers' chunks are
+  needed sooner on the next forward);
+- :class:`RoundFuture` — the non-blocking handle for one communication
+  round with PER-KEY completion. Transport callbacks complete keys
+  (result or give-up error); callers join with ``wait()`` /
+  ``result(key)`` / ``results()``, or chain work with ``on_key``.
+  Give-up errors propagate through the future with the same
+  class mapping as ``KVStoreDist.wait()`` (a blown PS_RESEND_DEADLINE
+  is a TimeoutError, retry-cap give-ups stay RuntimeError), and are
+  consumed from the store's global error list so they raise exactly
+  once.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Callable, Dict, Iterable, List, Optional, Sequence
+
+from geomx_tpu_torch import telemetry
+
+__all__ = ["give_up_exc", "Chunk", "plan_chunks", "auto_slice_bytes",
+           "slice_bytes_from_shape", "slice_bytes_from_links",
+           "RoundFuture", "RoundAborted", "WorkerLostError"]
+
+
+class RoundAborted(RuntimeError):
+    """A communication round cannot complete as issued (membership
+    changed mid-round, or the transport abandoned part of it in a way
+    the trainer can recover from by re-issuing against the new epoch)."""
+
+
+class WorkerLostError(RoundAborted):
+    """A peer this round depended on was declared dead (membership
+    epoch bump). Subclasses :class:`RoundAborted` so one handler covers
+    both: catch, re-pull weights, re-issue the round."""
+
+
+def give_up_exc(errs: Iterable[str]) -> type:
+    """Exception class for surfacing transport give-ups: a peer death
+    declared by the scheduler (the resender tags it "declared dead")
+    raises WorkerLostError; a blown PS_RESEND_DEADLINE (tagged
+    "delivery deadline") is a TimeoutError at the issuing customer;
+    retry-cap give-ups stay RuntimeError. Callback-driven ops only see
+    the reason STRING (Customer.on_fail), so the class is recovered
+    from it here."""
+    errs = list(errs)
+    if any("declared dead" in e for e in errs):
+        return WorkerLostError
+    if any("round aborted" in e for e in errs):
+        return RoundAborted
+    return (TimeoutError
+            if any("delivery deadline" in e for e in errs)
+            else RuntimeError)
+
+
+class Chunk:
+    """One priority-ordered slice of a round: ``items`` is a subset of
+    the caller's entries (keys, or (key, shard) indices) in layer
+    order; ``priority`` already encodes the P3 rule (chunk i of a
+    round at base priority p sends at p - i); ``codec`` is the wire
+    codec every message of this chunk travels with ("" = raw fp32 —
+    see compression.device.WireCodec)."""
+
+    __slots__ = ("cid", "items", "priority", "codec")
+
+    def __init__(self, cid: int, items: List, priority: int,
+                 codec: str = ""):
+        self.cid = cid
+        self.items = items
+        self.priority = priority
+        self.codec = codec
+
+    def __repr__(self) -> str:  # debugging/test aid
+        return f"Chunk(cid={self.cid}, items={self.items}, " \
+               f"priority={self.priority}, codec={self.codec!r})"
+
+
+def auto_slice_bytes(rtt_ms: float, bw_mbps: float,
+                     min_bytes: int = 65536,
+                     max_bytes: int = 4 << 20) -> int:
+    """Chunk budget from the link's bandwidth-delay product.
+
+    On a shaped WAN the sweet spot for ``P3_SLICE_BYTES`` is roughly
+    one BDP per chunk: smaller and the per-message floor dominates
+    (the loopback <1x regime, PERF.md "pipelined round"); larger and
+    there are too few chunks in flight to hide the RTT. Sized from
+    the topology's worst (highest-BDP) shaped link —
+    ``ShapePlan.worst_link`` — via ``P3_SLICE_BYTES=-1``.
+
+    ``bw_mbps == 0`` (latency-only link) assumes a fat pipe: the
+    budget clamps to ``max_bytes`` so chunking still happens and the
+    RTT can be overlapped."""
+    rtt_s = max(rtt_ms, 0.0) / 1e3
+    if rtt_s == 0.0:
+        return 0  # unshaped: keep the single-chunk wire
+    if bw_mbps <= 0:
+        return max_bytes
+    bdp = rtt_s * bw_mbps * 1e6 / 8.0
+    return int(min(max(bdp, min_bytes), max_bytes))
+
+
+def slice_bytes_from_shape(cfg) -> int:
+    """Resolve ``P3_SLICE_BYTES=-1`` (auto) against GEOMX_SHAPE_PLAN:
+    chunk at the worst shaped global link's BDP
+    (:func:`auto_slice_bytes` over ``ShapePlan.worst_link``), or fall
+    back to the single-chunk wire when nothing is shaped. Shared by
+    the worker store and the server (the server FSA sub-splits its
+    canonical ranges at the same budget), so both sides of the wire
+    resolve one auto value from one plan."""
+    from geomx_tpu_torch.ps import shaping as shaping_mod
+
+    plan = shaping_mod.plan_from_config(cfg)
+    if plan is None:
+        return 0
+    worst = plan.worst_link(is_global=True)
+    if worst is None:
+        return 0
+    return auto_slice_bytes(*worst)
+
+
+def slice_bytes_from_links(links: Iterable[Sequence[float]],
+                           min_bytes: int = 65536,
+                           max_bytes: int = 4 << 20,
+                           rtt_floor_ms: float = 0.0) -> int:
+    """Chunk budget from LIVE link estimates: the worst (highest-BDP)
+    measured ``(rtt_ms, bw_mbps)`` pair through
+    :func:`auto_slice_bytes` — the second slice-budget source, fed by
+    the transport controller from ``LinkEstimator`` digests (or a
+    ``ClusterHealthBoard`` render) instead of the declared shape plan.
+
+    Slice-budget precedence, as resolved by the consumers:
+
+    1. an explicit ``P3_SLICE_BYTES > 0`` (or a per-call
+       ``slice_bytes=``) always wins — operator intent;
+    2. the live estimate (this function, via the
+       ``GEOMX_TRANSPORT_CONTROLLER`` plan) overrides the shape-plan
+       auto value once real measurements exist;
+    3. ``P3_SLICE_BYTES=-1`` resolves against the declared plan
+       (:func:`slice_bytes_from_shape`) until then;
+    4. otherwise 0 — the single-chunk wire.
+
+    Links with ``rtt_ms`` under ``rtt_floor_ms`` (or without a
+    bandwidth estimate yet) contribute nothing: a loopback BDP would
+    shrink chunking pointlessly. Returns 0 when no link qualifies —
+    callers keep their configured budget."""
+    best = 0
+    for rtt_ms, bw_mbps in links:
+        if rtt_ms < rtt_floor_ms or bw_mbps <= 0:
+            continue
+        best = max(best, auto_slice_bytes(rtt_ms, bw_mbps,
+                                          min_bytes, max_bytes))
+    return best
+
+
+def plan_chunks(items: Sequence, sizes_bytes: Sequence[int],
+                budget_bytes: int, base_priority: int = 0,
+                codec_for: Optional[Callable[[int, int, int], str]] = None,
+                ) -> List[Chunk]:
+    """Greedily group ``items`` (layer order preserved) into chunks of
+    at most ~``budget_bytes`` each; an item larger than the budget gets
+    a chunk of its own rather than being split (splitting is the
+    caller's job — dense keys split at ``_shards`` granularity, BSC
+    keys must stay whole because the server FSA counts one push per
+    (key, shard) per worker per round). ``budget_bytes <= 0`` means one
+    chunk holding everything (the batched wire).
+
+    ``codec_for(cid, num_chunks, num_elems)`` — typically
+    ``WireCodec.chunk_codec`` — stamps each chunk's wire codec after
+    grouping, with ``num_elems`` the chunk's float32 element count, so
+    P3 priority picks the width (head chunks fp16, bulk tails 2-bit)."""
+    assert len(items) == len(sizes_bytes)
+    if not items:
+        return []
+    if budget_bytes <= 0:
+        chunks = [Chunk(0, list(items), base_priority)]
+        total = sum(sizes_bytes)
+        if codec_for is not None:
+            chunks[0].codec = codec_for(0, 1, total // 4)
+        return chunks
+    chunks: List[Chunk] = []
+    chunk_bytes: List[int] = []
+    cur: List = []
+    cur_bytes = 0
+    for it, sz in zip(items, sizes_bytes):
+        if cur and cur_bytes + sz > budget_bytes:
+            chunks.append(Chunk(len(chunks), cur,
+                                base_priority - len(chunks)))
+            chunk_bytes.append(cur_bytes)
+            cur, cur_bytes = [], 0
+        cur.append(it)
+        cur_bytes += sz
+    if cur:
+        chunks.append(Chunk(len(chunks), cur, base_priority - len(chunks)))
+        chunk_bytes.append(cur_bytes)
+    if codec_for is not None:
+        for ch, nbytes in zip(chunks, chunk_bytes):
+            ch.codec = codec_for(ch.cid, len(chunks), nbytes // 4)
+    return chunks
+
+
+class RoundFuture:
+    """Per-key completion handle for one communication round.
+
+    The issuing store registers the round's keys up front; transport
+    callbacks then call :meth:`complete_key` (and :meth:`add_error` for
+    give-ups) as responses land, in any order. ``consume`` — installed
+    by the issuing store — removes this round's error strings from the
+    store's global ``wait()`` list when the future raises them, so an
+    error surfaces exactly once (the join-consumes-its-own-failures
+    contract of the PR-r5 BSC joins)."""
+
+    def __init__(self, keys: Iterable[int],
+                 consume: Optional[Callable[[List[str]], None]] = None,
+                 max_retries: int = 0,
+                 on_abort: Optional[Callable[[str], None]] = None):
+        self._cv = threading.Condition()
+        # fired (best-effort, outside the lock) just before wait() raises
+        # a timeout or give-up — the issuing store hooks the flight
+        # recorder here so a dead round leaves its wire history behind
+        self._on_abort = on_abort
+        self._born = time.monotonic()
+        self._latency_observed = False
+        self._keys: List[int] = list(keys)
+        self._pending = set(self._keys)
+        assert len(self._pending) == len(self._keys), \
+            "RoundFuture: duplicate keys in one round"
+        self._results: Dict[int, object] = {}
+        self._errors: Dict[int, List[str]] = {}
+        self._callbacks: Dict[int, List[Callable[[int], None]]] = {}
+        self._consume = consume
+        # bounded per-chunk retry budget (PS_CHUNK_RETRIES): the issuing
+        # store consults retry_budget(cid) before re-issuing a failed
+        # chunk instead of recording its error
+        self.max_retries = max_retries
+        self._retries: Dict[int, int] = {}
+
+    @property
+    def keys(self) -> List[int]:
+        return list(self._keys)
+
+    # -- completion (transport-callback side) -----------------------------
+
+    def retry_budget(self, cid: int) -> bool:
+        """Consume one retry for chunk ``cid``; False once exhausted
+        (then the failure is recorded via :meth:`add_error` instead)."""
+        with self._cv:
+            used = self._retries.get(cid, 0)
+            if used >= self.max_retries:
+                return False
+            self._retries[cid] = used + 1
+            return True
+
+    def retries_used(self, cid: int) -> int:
+        with self._cv:
+            return self._retries.get(cid, 0)
+
+    def add_error(self, key: int, err: str) -> None:
+        """Record a transport give-up for ``key`` without completing it
+        (its other messages may still be in flight); raised by the
+        first join that covers the key."""
+        with self._cv:
+            self._errors.setdefault(key, []).append(err)
+
+    def complete_key(self, key: int, result=None) -> None:
+        """Mark ``key`` done (idempotent) with its result; fires any
+        ``on_key`` continuations OUTSIDE the future's lock."""
+        with self._cv:
+            if key not in self._pending:
+                return
+            self._pending.discard(key)
+            self._results[key] = result
+            cbs = self._callbacks.pop(key, [])
+            self._cv.notify_all()
+        for fn in cbs:
+            fn(key)
+
+    def abort_pending(self, reason: str) -> None:
+        """Fail every still-pending key with ``reason`` and wake all
+        joiners NOW. Used when the round is known dead as a whole (the
+        store's abort path, a mesh party whose global worker saw the
+        van round collapse): without it, joiners sit out the full
+        ``wait()`` timeout on keys that can never complete — exactly
+        the hang the mesh ranks must not suffer."""
+        with self._cv:
+            pending = list(self._pending)
+            for k in pending:
+                self._errors.setdefault(k, []).append(reason)
+                self._pending.discard(k)
+                self._results.setdefault(k, None)
+                self._callbacks.pop(k, None)
+            self._cv.notify_all()
+
+    def _abort(self, reason: str) -> None:
+        """Best-effort abort hook; never lets a hook failure mask the
+        round's own error."""
+        if self._on_abort is None:
+            return
+        try:
+            self._on_abort(reason)
+        except Exception:  # noqa: BLE001
+            pass
+
+    # -- joining (caller side) --------------------------------------------
+
+    def done(self, keys: Optional[Iterable[int]] = None) -> bool:
+        klist = self._keys if keys is None else list(keys)
+        with self._cv:
+            return all(k not in self._pending for k in klist)
+
+    def errors(self, key: int) -> List[str]:
+        with self._cv:
+            return list(self._errors.get(key, []))
+
+    def on_key(self, key: int, fn: Callable[[int], None]) -> None:
+        """Run ``fn(key)`` when ``key`` completes (immediately if it
+        already has). Runs on the completing transport thread — keep it
+        non-blocking (blocking a van reader thread on a response from
+        the same server deadlocks the connection)."""
+        with self._cv:
+            if key in self._pending:
+                self._callbacks.setdefault(key, []).append(fn)
+                return
+        fn(key)
+
+    def wait(self, keys: Optional[Iterable[int]] = None,
+             timeout: Optional[float] = None) -> None:
+        """Block until the given keys (default: all) complete; raise
+        the recorded give-up errors with the wait()-compatible class
+        mapping, consuming them from the store's global list."""
+        klist = self._keys if keys is None else list(keys)
+        with self._cv:
+            done = self._cv.wait_for(
+                lambda: all(k not in self._pending for k in klist),
+                timeout)
+            left = [k for k in klist if k in self._pending]
+            errs = [e for k in klist for e in self._errors.get(k, [])]
+            round_done = done and not self._pending and not self._errors \
+                and not self._latency_observed
+            if round_done:
+                self._latency_observed = True
+        if not done:
+            self._abort(f"timeout: keys still pending {left}")
+            raise TimeoutError(
+                f"RoundFuture.wait: keys still pending {left}")
+        if round_done:
+            telemetry.histogram_obs(
+                "round.latency_ms", (time.monotonic() - self._born) * 1e3)
+        if errs:
+            if self._consume is not None:
+                self._consume(errs)
+            self._abort("give_up: " + "; ".join(errs))
+            raise give_up_exc(errs)("transport gave up on "
+                                    + "; ".join(errs))
+
+    def result(self, key: int, timeout: Optional[float] = None):
+        """Join one key and return its result (the per-chunk consume
+        primitive — apply chunk i while chunk i+1 is still in flight)."""
+        self.wait([key], timeout)
+        with self._cv:
+            return self._results[key]
+
+    def results(self, timeout: Optional[float] = None) -> Dict[int, object]:
+        """Join the whole round; returns {key: result}."""
+        self.wait(timeout=timeout)
+        with self._cv:
+            return dict(self._results)

@@ -27,6 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -109,3 +110,11 @@ def library(name: str) -> ctypes.CDLL:
             _build([name])
             _LIBS[name] = ctypes.CDLL(str(_target(name)))
         return _LIBS[name]
+
+
+def count_launch(counts: dict, name: str) -> None:
+    """Add one launch of ``name`` to a wrapper's ``LAUNCHES``; locked,
+    because the party workers of one process launch from several
+    threads and ``+=`` on a dict entry is not atomic."""
+    with _COUNT_LOCK:
+        counts[name] += 1

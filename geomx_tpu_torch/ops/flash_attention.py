@@ -306,7 +306,7 @@ def _launch(name: str, p: _Params, q, arg: int) -> None:
             rc = fn(ctypes.byref(p), arg, stream)
     if rc != 0:   # the C entry point returns the launch's cudaError_t
         raise RuntimeError(f"flash_{name} kernel launch: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    _cuda.count_launch(LAUNCHES, name)
 
 
 def _fwd_cuda(q, k, v, causal):

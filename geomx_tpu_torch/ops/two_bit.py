@@ -140,7 +140,7 @@ def _two_bit_cuda(grad, residual, threshold, out_residual):
         rc = lib.geomx_two_bit_quantize(ctypes.byref(p), int(vec), stream)
     if rc != 0:   # the C entry point returns the launch's cudaError_t
         raise RuntimeError(f"two_bit kernel launch: CUDA error {rc}")
-    LAUNCHES["two_bit"] += 1
+    _cuda.count_launch(LAUNCHES, "two_bit")
     return packed.view(*grad.shape[:-1], (m + 3) // 4), out_residual
 
 

@@ -1,0 +1,373 @@
+"""Deterministic, seedable chaos injection for the van transport.
+
+The reference's only fault knob is ``PS_DROP_MSG`` — a uniform random
+drop driven by the process-global RNG (van.cc:498-499, 871-877), so
+failure tests are probabilistic and unreproducible. This module replaces
+that with a declarative **fault plan**: a list of rules, each scoped to a
+link (src node -> dst node, optionally one tier), with every random
+decision drawn from a per-(rule, link) ``random.Random`` stream derived
+from ``PS_SEED``. Same seed + same plan + same traffic => the identical
+drop/delay/crash schedule, run after run.
+
+Plan format (``PS_FAULT_PLAN`` = inline JSON or ``@/path/to/plan.json``):
+
+    {"seed": 7, "rules": [
+      {"type": "drop",      "src": "*", "dst": 9, "p": 0.3},
+      {"type": "delay",     "delay_s": 0.05, "jitter_s": 0.02, "p": 1.0},
+      {"type": "dup",       "p": 0.1},
+      {"type": "reorder",   "window": 4},
+      {"type": "partition", "between": [9, 11], "start_s": 1.0,
+       "duration_s": 2.0},
+      {"type": "crash",     "node": 8, "at": 12, "on": "recv"}
+    ]}
+
+(a bare JSON list is accepted as the ``rules`` value). Node match specs
+are an int id, a list of ids, or ``"*"``; ``"tier"`` is ``"local"``,
+``"global"`` or ``"*"`` (default). Control frames (ACKs, barriers,
+heartbeats) are exempt unless a rule sets ``"control": true`` — faulting
+the control plane is possible but opt-in, like the reference's
+``PS_DROP_MSG`` which also spares control frames on the native path.
+
+Each van binds the plan once (:meth:`FaultPlan.bind`) and consults the
+resulting :class:`FaultInjector` from its inbound dispatch (and its send
+path, for send-side crash counting). Delayed / reordered / duplicated
+frames are re-injected through the van's normal ``_process`` dispatch,
+so dedup/ACK semantics still apply to them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import random
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
+
+log = logging.getLogger("geomx.faults")
+
+KINDS = ("drop", "delay", "dup", "reorder", "partition", "crash")
+
+
+def _match(spec, nid: int) -> bool:
+    """Node match: "*" / None = any; int or list of ints = exact."""
+    if spec is None or spec == "*":
+        return True
+    if isinstance(spec, (list, tuple)):
+        return nid in [int(x) for x in spec]
+    return int(spec) == nid
+
+
+@dataclasses.dataclass
+class FaultRule:
+    kind: str
+    src: object = "*"          # sender match (drop/delay/dup/reorder)
+    dst: object = "*"          # receiver match
+    tier: str = "*"            # "local" | "global" | "*"
+    p: float = 1.0             # drop/delay/dup probability
+    delay_s: float = 0.0       # fixed added latency
+    jitter_s: float = 0.0      # uniform [0, jitter_s) on top of delay_s
+    window: int = 0            # reorder: flush a permuted batch of N
+    between: object = None     # partition: pair of node match specs
+    start_s: float = 0.0       # partition window start (from arm())
+    duration_s: float = 0.0    # partition window length
+    node: object = "*"         # crash: which van dies
+    at: int = 0                # crash: on the Nth matching message (1-based)
+    at_round: int = 0          # crash: at the START of training round N
+                               # (1-based; trainer calls kv.notify_round)
+    on: str = "recv"           # crash counter side: "recv" | "send"
+    control: bool = False      # also fault control frames
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "FaultRule":
+        d = dict(d)
+        kind = d.pop("type", None) or d.pop("kind", None)
+        if kind not in KINDS:
+            raise ValueError(f"fault rule type must be one of {KINDS}, "
+                             f"got {kind!r}")
+        unknown = set(d) - {f.name for f in dataclasses.fields(cls)}
+        if unknown:
+            raise ValueError(f"unknown fault rule fields: {sorted(unknown)}")
+        r = cls(kind=kind, **d)
+        if r.kind == "partition" and (
+                not isinstance(r.between, (list, tuple))
+                or len(r.between) != 2):
+            raise ValueError("partition rule needs between=[a, b]")
+        if r.kind == "crash" and r.on not in ("recv", "send"):
+            raise ValueError("crash rule: on must be 'recv' or 'send'")
+        if r.kind == "reorder" and r.window < 2:
+            raise ValueError("reorder rule needs window >= 2")
+        return r
+
+    def tier_matches(self, is_global: bool) -> bool:
+        if self.tier == "*":
+            return True
+        return self.tier == ("global" if is_global else "local")
+
+
+def deliver_later(van, delay_s: float, msg) -> None:
+    """Hold ``msg`` for ``delay_s`` then re-inject it through the van's
+    normal dispatch (``van._process``). Shared by the fault injector's
+    delay/dup rules and the link shaper (``ps/shaping.py``) so both
+    layers use one timer/delivery mechanism — a frame held by either
+    re-enters the SAME way and is never gated (or shaped) twice."""
+    def _deliver():
+        try:
+            if not van.stopped.is_set():
+                van._process(msg)
+        except Exception:  # noqa: BLE001 — held frames must not kill vans
+            log.exception("delayed re-injection failed")
+
+    t = threading.Timer(delay_s, _deliver)
+    t.daemon = True
+    t.start()
+
+
+class FaultPlan:
+    """Immutable parsed plan; ``bind(van)`` yields a per-van injector."""
+
+    def __init__(self, rules: List[FaultRule], seed: Optional[int] = None):
+        self.rules = list(rules)
+        self.seed = seed
+
+    @classmethod
+    def parse(cls, text: str, seed: Optional[int] = None) -> "FaultPlan":
+        text = text.strip()
+        if text.startswith("@"):
+            with open(text[1:], "r", encoding="utf-8") as f:
+                text = f.read()
+        doc = json.loads(text)
+        if isinstance(doc, dict):
+            seed = doc.get("seed", seed)
+            doc = doc.get("rules", [])
+        return cls([FaultRule.from_dict(r) for r in doc], seed=seed)
+
+    def bind(self, van) -> "FaultInjector":
+        return FaultInjector(self, van)
+
+
+def plan_from_config(cfg) -> Optional[FaultPlan]:
+    """PS_FAULT_PLAN -> FaultPlan (plan-embedded seed beats PS_SEED)."""
+    if not cfg.fault_plan:
+        return None
+    seed = cfg.ps_seed if cfg.ps_seed >= 0 else None
+    return FaultPlan.parse(cfg.fault_plan, seed=seed)
+
+
+def van_seed(cfg, my_role: int, is_global: bool) -> Optional[int]:
+    """Derive a stable per-van seed from PS_SEED. The van's final id is
+    unknown at construction, so mix in what IS stable: role + tier —
+    distinct streams per van kind, identical across process restarts."""
+    if cfg.ps_seed < 0:
+        return None
+    return (cfg.ps_seed * 1_000_003 + (my_role << 4) + int(is_global)) \
+        & 0x7FFFFFFF
+
+
+class FaultInjector:
+    """Per-van fault plan evaluator with deterministic RNG streams.
+
+    ``on_inbound(msg)`` returns True to deliver now; False means the
+    injector consumed the frame (dropped, held for delay/reorder, or the
+    van just crashed). Held frames re-enter via ``van._process``.
+    """
+
+    def __init__(self, plan: FaultPlan, van):
+        self.plan = plan
+        self.van = van
+        self._lock = threading.Lock()
+        self._rngs: Dict[Tuple[int, int, int], random.Random] = {}
+        self._counts: Dict[Tuple[int, int, int], int] = {}
+        self._reorder: Dict[Tuple[int, int, int], List] = {}
+        self._t0: Optional[float] = None
+        self._crashed = False
+        # (rule_idx, kind, src, dst, seq, action) — the audit trail tests
+        # compare across runs to prove determinism
+        self.decision_log: List[Tuple] = []
+
+    # -- lifecycle -------------------------------------------------------
+
+    def arm(self) -> None:
+        """Start the plan clock (partition windows are relative to this)."""
+        with self._lock:
+            if self._t0 is None:
+                self._t0 = time.monotonic()
+
+    def _elapsed(self) -> float:
+        with self._lock:
+            if self._t0 is None:
+                self._t0 = time.monotonic()
+            return time.monotonic() - self._t0
+
+    def _rng(self, idx: int, src: int, dst: int) -> random.Random:
+        key = (idx, src, dst)
+        r = self._rngs.get(key)
+        if r is None:
+            base = self.plan.seed if self.plan.seed is not None else 0
+            # stable integer mix — NOT hash(), which is salted per process
+            r = random.Random(
+                (base * 1_000_003 + idx) * 7_919
+                + (src & 0xFFFF) * 104_729 + (dst & 0xFFFF))
+            self._rngs[key] = r
+        return r
+
+    def _bump(self, idx: int, src: int, dst: int) -> int:
+        key = (idx, src, dst)
+        n = self._counts.get(key, 0) + 1
+        self._counts[key] = n
+        return n
+
+    def _log(self, idx: int, kind: str, src: int, dst: int, seq: int,
+             action: str) -> None:
+        self.decision_log.append((idx, kind, src, dst, seq, action))
+
+    # -- round-indexed crash (elastic-membership chaos) -------------------
+
+    def on_round(self, round_idx: int) -> None:
+        """Trainer hook (``kv.notify_round``): fire crash rules pinned
+        to a TRAINING ROUND instead of a message count — "kill worker 9
+        at the start of round 3" reads as intended regardless of how
+        many wire messages a round happens to take."""
+        if self._crashed:
+            return
+        for idx, r in enumerate(self.plan.rules):
+            if r.kind != "crash" or r.at_round <= 0:
+                continue
+            if not r.tier_matches(self.van.is_global):
+                continue
+            if not _match(r.node, self.van.my_id):
+                continue
+            if round_idx == r.at_round:
+                self._do_crash(idx, r, self.van.my_id, self.van.my_id,
+                               round_idx)
+                return
+
+    # -- send side (crash-at-send counting) ------------------------------
+
+    def on_send(self, target: int, msg) -> bool:
+        """False = the sending van just crashed; swallow the frame."""
+        if self._crashed:
+            return False
+        my = self.van.my_id
+        for idx, r in enumerate(self.plan.rules):
+            if r.kind != "crash" or r.on != "send":
+                continue
+            if not r.tier_matches(self.van.is_global):
+                continue
+            if msg.is_control and not r.control:
+                continue
+            if not _match(r.node, my):
+                continue
+            seq = None
+            with self._lock:
+                seq = self._bump(idx, my, target if target >= 0 else 0)
+            if seq == r.at:
+                self._do_crash(idx, r, my, target, seq)
+                return False
+        return True
+
+    # -- receive side ----------------------------------------------------
+
+    def on_inbound(self, msg) -> bool:
+        if self._crashed:
+            return False
+        my = self.van.my_id
+        src = msg.meta.sender
+        for idx, r in enumerate(self.plan.rules):
+            if not r.tier_matches(self.van.is_global):
+                continue
+            if msg.is_control and not r.control:
+                continue
+            if r.kind == "crash":
+                if r.on != "recv" or not _match(r.node, my):
+                    continue
+                with self._lock:
+                    seq = self._bump(idx, my, 0)
+                if seq == r.at:
+                    self._do_crash(idx, r, src, my, seq)
+                    return False
+                continue
+            if r.kind == "partition":
+                a, b = r.between
+                if not ((_match(a, src) and _match(b, my))
+                        or (_match(b, src) and _match(a, my))):
+                    continue
+                t = self._elapsed()
+                if r.start_s <= t < r.start_s + r.duration_s:
+                    with self._lock:
+                        seq = self._bump(idx, src, my)
+                        self._log(idx, "partition", src, my, seq, "drop")
+                    return False
+                continue
+            if not (_match(r.src, src) and _match(r.dst, my)):
+                continue
+            flush = None  # reorder batch to deliver outside the lock
+            with self._lock:
+                seq = self._bump(idx, src, my)
+                rng = self._rng(idx, src, my)
+                roll = rng.random() if r.p < 1.0 else 0.0
+                hit = roll < r.p
+                if r.kind == "drop":
+                    self._log(idx, "drop", src, my, seq,
+                              "drop" if hit else "pass")
+                    if hit:
+                        return False
+                    continue
+                if r.kind == "dup":
+                    self._log(idx, "dup", src, my, seq,
+                              "dup" if hit else "pass")
+                    if hit:
+                        self._later(0.0, msg)
+                    continue
+                if r.kind == "delay":
+                    if not hit:
+                        self._log(idx, "delay", src, my, seq, "pass")
+                        continue
+                    d = r.delay_s + (rng.random() * r.jitter_s
+                                     if r.jitter_s > 0 else 0.0)
+                    self._log(idx, "delay", src, my, seq, f"delay:{d:.4f}")
+                    self._later(d, msg)
+                    return False
+                if r.kind == "reorder":
+                    buf = self._reorder.setdefault((idx, src, my), [])
+                    buf.append(msg)
+                    if len(buf) < r.window:
+                        self._log(idx, "reorder", src, my, seq, "hold")
+                        return False
+                    batch = list(buf)
+                    buf.clear()
+                    order = list(range(len(batch)))
+                    rng.shuffle(order)
+                    self._log(idx, "reorder", src, my, seq,
+                              "flush:" + ",".join(map(str, order)))
+                    flush = [batch[i] for i in order]
+            if flush is not None:
+                # deliver the permuted batch synchronously, in order —
+                # timers would race and break schedule determinism
+                for m in flush:
+                    try:
+                        self.van._process(m)
+                    except Exception:  # noqa: BLE001
+                        log.exception("reorder re-injection failed")
+                return False
+        return True
+
+    # -- internals -------------------------------------------------------
+
+    def _later(self, delay_s: float, msg) -> None:
+        """Re-inject a frame through the van's normal dispatch."""
+        deliver_later(self.van, delay_s, msg)
+
+    def _do_crash(self, idx: int, rule: FaultRule, src: int, dst: int,
+                  seq: int) -> None:
+        self._crashed = True
+        self._log(idx, "crash", src, dst, seq, "crash")
+        log.warning("FaultPlan: crashing van id=%d after %s message #%d",
+                    self.van.my_id, rule.on, seq)
+        # crash from a fresh thread: the reader loop that delivered this
+        # frame must not tear down its own socket mid-iteration
+        threading.Thread(
+            target=self.van._crash_from_fault,
+            args=(f"FaultPlan crash rule #{idx} ({rule.on} msg #{seq})",),
+            daemon=True).start()

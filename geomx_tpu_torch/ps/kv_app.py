@@ -1,0 +1,499 @@
+"""KVWorker / KVServer: the key-value application layer.
+
+Plays the role of ps-lite's ``KVWorker``/``KVServer``/``SimpleApp``
+(reference: 3rdparty/ps-lite/include/ps/kv_app.h:80-751) with a cleaner
+shape enabled by the two-postoffice design:
+
+- the reference's server-side global-tier client verbs (``TS_Push`` /
+  ``TS_Pull``, kv_app.h:508/533) are unnecessary — an intra-DC server simply
+  owns a regular :class:`KVWorker` bound to the *global* tier's postoffice;
+- SimpleApp command traffic (kv_app.h's SimpleApp) is folded in as messages
+  with ``meta.simple_app=True`` handled by the same request handler.
+
+Values travel as one data part per key with dtype/shape in the meta, so no
+lens bookkeeping is needed; compressed payloads tag ``meta.compr``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+
+from geomx_tpu_torch.ps import base
+from geomx_tpu_torch.ps.customer import Customer
+from geomx_tpu_torch.ps.message import Message, Meta
+from geomx_tpu_torch.ps.postoffice import Postoffice
+
+KV_APP_ID = 0
+
+
+@dataclasses.dataclass
+class KVPairs:
+    """keys + one value array per key (reference: kv_app.h:39-77).
+
+    ``offsets``/``totals`` implement shard addressing for big-array
+    splitting: entry i says "this value is elements [offsets[i],
+    offsets[i]+len) of key keys[i], whose full size is totals[i]". The
+    reference encodes the same information positionally through per-server
+    wire-key ranges (kvstore_dist.h:725-816 EncodeDefaultKey); explicit
+    offsets are simpler and survive re-sharding across tiers.
+    """
+
+    keys: List[int] = dataclasses.field(default_factory=list)
+    vals: List[np.ndarray] = dataclasses.field(default_factory=list)
+    # optional per-key auxiliary arrays (e.g. BSC indices)
+    aux: List[Optional[np.ndarray]] = dataclasses.field(default_factory=list)
+    # shard addressing; empty means "whole key" for every entry
+    offsets: List[int] = dataclasses.field(default_factory=list)
+    totals: List[int] = dataclasses.field(default_factory=list)
+    # pull requests only: requested element count per key (0 = whole shard)
+    lens: List[int] = dataclasses.field(default_factory=list)
+    compr: str = ""
+
+    def __len__(self) -> int:
+        return len(self.keys)
+
+    def offset_of(self, i: int) -> int:
+        return self.offsets[i] if i < len(self.offsets) else 0
+
+    def total_of(self, i: int) -> int:
+        return self.totals[i] if i < len(self.totals) else 0
+
+    def len_of(self, i: int) -> int:
+        return self.lens[i] if i < len(self.lens) else 0
+
+
+@dataclasses.dataclass
+class ReqMeta:
+    """What a server request handler needs to respond (kv_app.h:444-462)."""
+
+    sender: int
+    timestamp: int
+    customer_id: int
+    push: bool
+    pull: bool
+    simple_app: bool
+    head: int
+    body: str
+    priority: int
+    version: int
+    iters: int
+    compr: str
+    num_merge: int
+    party_nsrv: int = 1
+    # membership epoch the sender stamped; servers fence stale pushes
+    # (van.is_stale) so a declared-dead zombie can't pollute aggregation
+    epoch: int = 0
+    # trace context carried by the request (ps/message.py Meta); servers
+    # copy it onto forwarded global-tier messages and responses echo it
+    trace_round: int = -1
+    trace_chunk: int = -1
+    trace_origin: int = -1
+
+
+def _pack_kv(meta: Meta, kvs: KVPairs) -> Message:
+    msg = Message(meta=meta)
+    msg.add_array(np.asarray(kvs.keys, dtype=np.int64))
+    n = len(kvs.keys)
+    offs = list(kvs.offsets) + [0] * (n - len(kvs.offsets))
+    tots = list(kvs.totals) + [0] * (n - len(kvs.totals))
+    lens = list(kvs.lens) + [0] * (n - len(kvs.lens))
+    msg.add_array(np.asarray(offs, dtype=np.int64))
+    msg.add_array(np.asarray(tots, dtype=np.int64))
+    msg.add_array(np.asarray(lens, dtype=np.int64))
+    aux_mask = []
+    for i, v in enumerate(kvs.vals):
+        msg.add_array(np.asarray(v))
+        a = kvs.aux[i] if i < len(kvs.aux) else None
+        if a is not None:
+            msg.add_array(np.asarray(a))
+            aux_mask.append(1)
+        else:
+            aux_mask.append(0)
+    msg.meta.compr = kvs.compr
+    if any(aux_mask):
+        msg.meta.aux_mask = int("".join(map(str, aux_mask)), 2)
+        msg.meta.aux_len = len(aux_mask)
+    return msg
+
+
+def _unpack_kv(msg: Message) -> KVPairs:
+    arrays = msg.arrays()
+    keys = [int(k) for k in arrays[0]] if len(arrays) else []
+    kvs = KVPairs(keys=keys, compr=msg.meta.compr)
+    nkeys = len(keys)
+    if nkeys:
+        kvs.offsets = [int(x) for x in arrays[1]]
+        kvs.totals = [int(x) for x in arrays[2]]
+        kvs.lens = [int(x) for x in arrays[3]]
+    first_val = 4
+    if msg.meta.aux_len and msg.meta.aux_mask:
+        # aux arrays interleaved after their value part
+        bits = bin(msg.meta.aux_mask)[2:].zfill(msg.meta.aux_len)
+        idx = first_val
+        for i in range(nkeys):
+            kvs.vals.append(arrays[idx])
+            idx += 1
+            if bits[i] == "1":
+                kvs.aux.append(arrays[idx])
+                idx += 1
+            else:
+                kvs.aux.append(None)
+    else:
+        kvs.vals = arrays[first_val:first_val + nkeys]
+        kvs.aux = [None] * nkeys
+    return kvs
+
+
+class OpFuture:
+    """Non-blocking handle for one KVWorker push/pull timestamp.
+
+    The op is issued with ``cb=fut._fire`` so the transport completes it
+    from the response (or give-up) callback; the future captures the
+    give-up reason at fire time (``take_failure`` is pop-once, and the
+    callback thread is the only place it is still guaranteed present).
+    ``wait()`` re-raises a give-up with the same class mapping as
+    ``KVStoreDist.wait()``."""
+
+    def __init__(self, worker: "KVWorker", ts: int):
+        self._worker = worker
+        self.ts = ts
+        self._done = threading.Event()
+        self._failure: Optional[str] = None
+
+    def _fire(self, ts: int) -> None:
+        self._failure = self._worker.take_failure(ts)
+        self._done.set()
+
+    def done(self) -> bool:
+        return self._done.is_set()
+
+    def failure(self) -> Optional[str]:
+        """Give-up reason, if the transport abandoned the op."""
+        return self._failure
+
+    def wait(self, timeout: Optional[float] = None) -> None:
+        if not self._done.wait(timeout):
+            raise TimeoutError(f"OpFuture.wait: ts={self.ts} still pending")
+        if self._failure is not None:
+            from geomx_tpu_torch.kvstore.frontier import give_up_exc
+            raise give_up_exc([self._failure])(
+                f"transport gave up on ts={self.ts}: {self._failure}")
+
+    def responses(self) -> List[KVPairs]:
+        """Response data (combined push+pull acks / pulls); consume once."""
+        return self._worker.take_response(self.ts)
+
+
+class KVWorker:
+    """Worker-side async push/pull client (reference: kv_app.h:80-426)."""
+
+    def __init__(self, postoffice: Postoffice, customer_id: int = 0):
+        self.po = postoffice
+        self.customer = Customer(KV_APP_ID, customer_id, self._process)
+        self.po.register_customer(self.customer)
+        self._lock = threading.Lock()
+        # ts -> list of response KVPairs
+        self._responses: Dict[int, List[KVPairs]] = {}
+        self._response_bodies: Dict[int, List[str]] = {}
+        self._callbacks: Dict[int, Callable[[], None]] = {}
+        # ts -> reason for requests the transport gave up on; the callback
+        # still fires (with no response data) and the owner checks
+        # take_failure(ts) to run its failure path — never invoking the
+        # callback would wedge state machines built on it
+        self._failures: Dict[int, str] = {}
+        self.customer.on_fail = self._on_fail
+
+    # -- public API ------------------------------------------------------
+
+    def push(
+        self,
+        kvs: KVPairs,
+        server_rank: int = -1,
+        *,
+        recver_id: Optional[int] = None,
+        cmd: int = 0,
+        priority: int = 0,
+        version: int = 0,
+        iters: int = 0,
+        num_merge: int = 1,
+        party_nsrv: int = 1,
+        pull: bool = False,
+        trace_round: int = -1,
+        trace_chunk: int = -1,
+        trace_origin: int = -1,
+        cb: Optional[Callable[[int], None]] = None,
+    ) -> int:
+        """ZPush (reference: kv_app.h:219). Response = 1 ack.
+
+        Normally targets a server by rank; TSEngine relay hops pass an
+        explicit ``recver_id`` (peer worker) instead (reference:
+        TS relay sends in kv_app.h:234-246).
+        """
+        ts = self.customer.new_request(1, auto_clear=cb is not None)
+        with self._lock:
+            if cb is not None:
+                self._callbacks[ts] = cb
+            if pull:
+                # combined push+pull: the ack may carry response data
+                self._responses[ts] = []
+        meta = Meta(
+            recver=(recver_id if recver_id is not None
+                    else base.server_rank_to_id(server_rank)),
+            app_id=KV_APP_ID,
+            customer_id=self.customer.customer_id,
+            timestamp=ts,
+            request=True,
+            push=True,
+            pull=pull,
+            head=cmd,
+            priority=priority,
+            version=version,
+            iters=iters,
+            num_merge=num_merge,
+            party_nsrv=party_nsrv,
+            trace_round=trace_round,
+            trace_chunk=trace_chunk,
+            trace_origin=trace_origin,
+        )
+        self.po.van.send(_pack_kv(meta, kvs))
+        return ts
+
+    def pull(
+        self,
+        keys: List[int],
+        server_rank: int,
+        *,
+        offsets: Optional[List[int]] = None,
+        totals: Optional[List[int]] = None,
+        lens: Optional[List[int]] = None,
+        cmd: int = 0,
+        priority: int = 0,
+        compr: str = "",
+        aux: Optional[List] = None,
+        trace_round: int = -1,
+        trace_chunk: int = -1,
+        trace_origin: int = -1,
+        cb: Optional[Callable[[int], None]] = None,
+    ) -> int:
+        """ZPull (reference: kv_app.h:324). ``cb`` receives the request
+        timestamp when the response arrives. ``aux`` attaches per-key
+        auxiliary arrays to the REQUEST (row-sparse pulls send row ids)."""
+        ts = self.customer.new_request(1, auto_clear=cb is not None)
+        with self._lock:
+            self._responses[ts] = []
+            if cb is not None:
+                self._callbacks[ts] = cb
+        meta = Meta(
+            recver=base.server_rank_to_id(server_rank),
+            app_id=KV_APP_ID,
+            customer_id=self.customer.customer_id,
+            timestamp=ts,
+            request=True,
+            push=False,
+            pull=True,
+            head=cmd,
+            priority=priority,
+            trace_round=trace_round,
+            trace_chunk=trace_chunk,
+            trace_origin=trace_origin,
+        )
+        kvs = KVPairs(
+            keys=list(keys),
+            vals=[np.zeros(0, np.float32)] * len(keys),
+            aux=list(aux or []),
+            offsets=list(offsets or []),
+            totals=list(totals or []),
+            lens=list(lens or []),
+            compr=compr,
+        )
+        self.po.van.send(_pack_kv(meta, kvs))
+        return ts
+
+    def push_future(self, kvs: KVPairs, server_rank: int = -1,
+                    **kw) -> OpFuture:
+        """:meth:`push` returning an :class:`OpFuture` instead of a raw
+        timestamp (no user ``cb`` — chain with ``fut.wait()``)."""
+        assert "cb" not in kw
+        fut = OpFuture(self, -1)
+        fut.ts = self.push(kvs, server_rank, cb=fut._fire, **kw)
+        return fut
+
+    def pull_future(self, keys: List[int], server_rank: int,
+                    **kw) -> OpFuture:
+        """:meth:`pull` returning an :class:`OpFuture`."""
+        assert "cb" not in kw
+        fut = OpFuture(self, -1)
+        fut.ts = self.pull(keys, server_rank, cb=fut._fire, **kw)
+        return fut
+
+    def request(self, head: int, body: str, recver: int) -> int:
+        """SimpleApp-style command (reference: simple_app.h via kv_app.h)."""
+        if base.is_group(recver):
+            # the van skips declared-dead members in the group fan-out,
+            # so the expected-response count must match the LIVE set — a
+            # full-group count would wait forever on a corpse's ack
+            dead = self.po.van.declared_dead_ids()
+            n = len([t for t in base.expand_group(
+                recver, self.po.num_workers, self.po.num_servers)
+                if t not in dead]) or 1
+        else:
+            n = 1
+        ts = self.customer.new_request(n)
+        meta = Meta(
+            recver=recver,
+            app_id=KV_APP_ID,
+            customer_id=self.customer.customer_id,
+            timestamp=ts,
+            request=True,
+            simple_app=True,
+            head=head,
+            body=body,
+        )
+        self.po.van.send(Message(meta=meta))
+        return ts
+
+    def wait(self, ts: int, timeout: Optional[float] = None) -> None:
+        self.customer.wait_request(ts, timeout)
+
+    def take_response(self, ts: int) -> List[KVPairs]:
+        with self._lock:
+            return self._responses.pop(ts, [])
+
+    def take_response_bodies(self, ts: int) -> List[str]:
+        with self._lock:
+            return self._response_bodies.pop(ts, [])
+
+    def take_failure(self, ts: int) -> Optional[str]:
+        """Give-up reason for ``ts`` if the transport abandoned it, else
+        None. Callbacks should check this before trusting the (absent)
+        response data."""
+        with self._lock:
+            return self._failures.pop(ts, None)
+
+    def _on_fail(self, ts: int, reason: str) -> None:
+        with self._lock:
+            self._failures[ts] = reason
+            self._responses.pop(ts, None)
+            cb = self._callbacks.pop(ts, None)
+        if cb is not None:
+            cb(ts)
+
+    # -- inbound ---------------------------------------------------------
+
+    def _process(self, msg: Message) -> None:
+        if msg.meta.request:
+            # workers normally receive only responses; TSEngine relay traffic
+            # arrives here when a request handle is registered
+            if self._request_handle is not None:
+                self._request_handle(_req_meta_of(msg), _unpack_kv(msg), self)
+            return
+        ts = msg.meta.timestamp
+        if msg.meta.pull and msg.data:
+            kvs = _unpack_kv(msg)
+            with self._lock:
+                self._responses.setdefault(ts, []).append(kvs)
+        if msg.meta.simple_app and msg.meta.body:
+            # command responses may carry a payload (e.g. optimizer states)
+            with self._lock:
+                self._response_bodies.setdefault(ts, []).append(msg.meta.body)
+        with self._lock:
+            cb = self._callbacks.pop(ts, None)
+        if cb is not None:
+            cb(ts)  # callbacks receive the request timestamp
+
+    _request_handle: Optional[Callable] = None
+
+    def set_request_handle(self, fn: Callable) -> None:
+        """TSEngine worker-to-worker relay receive (kvstore_dist.h:58)."""
+        self._request_handle = fn
+
+    def response(self, req: ReqMeta, kvs: Optional[KVPairs] = None,
+                 body: str = "") -> None:
+        _send_response(self.po, self.customer, req, kvs, body)
+
+    def stop(self) -> None:
+        self.po.deregister_customer(self.customer)
+        self.customer.stop()
+
+
+class KVServer:
+    """Server-side request handler + responder (reference: kv_app.h:428-751)."""
+
+    def __init__(self, postoffice: Postoffice, customer_id: int = 0):
+        self.po = postoffice
+        self.customer = Customer(KV_APP_ID, customer_id, self._process)
+        self.po.register_customer(self.customer)
+        self._request_handle: Optional[Callable] = None
+
+    def set_request_handle(self, fn: Callable) -> None:
+        self._request_handle = fn
+
+    def _process(self, msg: Message) -> None:
+        if not msg.meta.request:
+            return  # servers make no requests through this customer
+        if self._request_handle is None:
+            return
+        self._request_handle(_req_meta_of(msg), _unpack_kv(msg), self)
+
+    def response(self, req: ReqMeta, kvs: Optional[KVPairs] = None,
+                 body: str = "") -> None:
+        _send_response(self.po, self.customer, req, kvs, body)
+
+    def stop(self) -> None:
+        self.po.deregister_customer(self.customer)
+        self.customer.stop()
+
+
+def _req_meta_of(msg: Message) -> ReqMeta:
+    return ReqMeta(
+        sender=msg.meta.sender,
+        timestamp=msg.meta.timestamp,
+        customer_id=msg.meta.customer_id,
+        push=msg.meta.push,
+        pull=msg.meta.pull,
+        simple_app=msg.meta.simple_app,
+        head=msg.meta.head,
+        body=msg.meta.body,
+        priority=msg.meta.priority,
+        version=msg.meta.version,
+        iters=msg.meta.iters,
+        compr=msg.meta.compr,
+        num_merge=msg.meta.num_merge,
+        party_nsrv=msg.meta.party_nsrv,
+        epoch=msg.meta.epoch,
+        trace_round=msg.meta.trace_round,
+        trace_chunk=msg.meta.trace_chunk,
+        trace_origin=msg.meta.trace_origin,
+    )
+
+
+def _send_response(
+    po: Postoffice, customer: Customer, req: ReqMeta,
+    kvs: Optional[KVPairs], body: str = "",
+) -> None:
+    meta = Meta(
+        recver=req.sender,
+        app_id=KV_APP_ID,
+        customer_id=req.customer_id,
+        timestamp=req.timestamp,
+        request=False,
+        push=req.push,
+        pull=req.pull,
+        simple_app=req.simple_app,
+        head=req.head,
+        body=body,
+        # the response inherits the request's trace context so the ack
+        # leg of a round renders under the same round/chunk on the trace
+        trace_round=req.trace_round,
+        trace_chunk=req.trace_chunk,
+        trace_origin=req.trace_origin,
+    )
+    if kvs is not None:
+        msg = _pack_kv(meta, kvs)
+    else:
+        msg = Message(meta=meta)
+    po.van.send(msg)

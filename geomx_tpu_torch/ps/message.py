@@ -1,0 +1,563 @@
+"""Wire format: nodes, meta, messages, and binary framing.
+
+Plays the role of ps-lite's ``Message``/``Meta`` (reference:
+3rdparty/ps-lite/include/ps/internal/message.h:135-267) and its protobuf
+serialization (src/meta.proto, van.cc:1002-1126 PackMeta/UnpackMeta), but
+re-designed: a frame is
+
+    u32 magic | i32 recver | u8 flags | i32 priority | u32 meta_len |
+    meta (JSON, utf-8) | u32 ndata | { u32 len | bytes } * ndata
+
+The fixed preheader carries exactly the fields a router needs (destination,
+tier, priority) so the native C++ van can route frames without parsing JSON.
+Tensor payloads travel as raw little-endian buffers described by
+``dtypes``/``shapes`` entries in the meta.
+
+GeoMX-specific meta extensions are kept: DGT block fields (first_key, seq,
+seq_begin, seq_end, val_bytes, total_bytes, channel, tos — reference
+message.h:237-267), TSEngine control verbs (ASKPULL/ASKPUSH/REPLY/
+AUTOPULLREPLY — message.h:135-136), and the global-tier controls
+(ADD_GLOBAL_NODE, BARRIER_GLOBAL).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import json
+import struct
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+
+MAGIC = 0x47454F4D  # "GEOM"
+
+_PREHDR = struct.Struct("<IiBiI")  # magic, recver, flags, priority, meta_len
+_U32 = struct.Struct("<I")
+_U16 = struct.Struct("<H")
+_I64 = struct.Struct("<q")
+
+FLAG_GLOBAL = 0x1
+# meta region is the binary TLV codec below, not JSON (JSON meta encode/decode was the largest per-message CPU item
+# on the protocol hot path). Control messages carrying node tables keep
+# JSON — they are rare (bootstrap/barrier) and structurally recursive.
+FLAG_BINMETA = 0x2
+
+
+class Control(enum.IntEnum):
+    """Control verbs (reference: message.h:125-137)."""
+
+    EMPTY = 0
+    TERMINATE = 1
+    ADD_NODE = 2
+    ADD_GLOBAL_NODE = 3
+    BARRIER = 4
+    BARRIER_GLOBAL = 5
+    ACK = 6
+    HEARTBEAT = 7
+    # TSEngine matchmaking verbs (reference: message.h:135-136)
+    ASKPULL = 8
+    ASKPUSH = 9
+    REPLY = 10
+    AUTOPULLREPLY = 11
+    # membership epoch broadcast: the scheduler promotes a heartbeat
+    # timeout into a cluster-wide declaration. meta.epoch carries the new
+    # epoch, meta.nodes the FULL current dead set (ids), so a lost or
+    # reordered broadcast self-heals on the next one
+    DEAD_NODE = 12
+
+
+class Role(enum.IntEnum):
+    SERVER = 0
+    WORKER = 1
+    SCHEDULER = 2
+
+
+@dataclasses.dataclass
+class Node:
+    """A registered node in one tier (reference: message.h:52-96)."""
+
+    role: int = Role.WORKER
+    id: int = -1
+    hostname: str = ""
+    port: int = 0
+    is_recovery: bool = False
+    customer_id: int = 0
+    # DGT lossy channels: UDP ports this node listens on (reference:
+    # van.cc:622-646 Bind_UDP + node table broadcast)
+    udp_ports: List[int] = dataclasses.field(default_factory=list)
+    # rank-alignment hint: nodes registering on a SECOND tier pass their
+    # first-tier rank so the second tier's scheduler assigns matching
+    # ranks. Central-party servers are global servers; the master's
+    # local-tier init shards must land on the process whose GLOBAL rank
+    # owns the same canonical range, which (host, port)-sorting cannot
+    # guarantee — each tier sorts by a different listener. -1 = unset.
+    sort_key: int = -1
+
+    def to_dict(self) -> Dict[str, Any]:
+        d = {
+            "role": int(self.role),
+            "id": self.id,
+            "hostname": self.hostname,
+            "port": self.port,
+            "is_recovery": self.is_recovery,
+            "customer_id": self.customer_id,
+        }
+        if self.udp_ports:
+            d["udp_ports"] = list(self.udp_ports)
+        if self.sort_key >= 0:
+            d["sort_key"] = self.sort_key
+        return d
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "Node":
+        return Node(
+            role=int(d.get("role", Role.WORKER)),
+            id=int(d.get("id", -1)),
+            hostname=d.get("hostname", ""),
+            port=int(d.get("port", 0)),
+            is_recovery=bool(d.get("is_recovery", False)),
+            customer_id=int(d.get("customer_id", 0)),
+            udp_ports=[int(p) for p in d.get("udp_ports", [])],
+            sort_key=int(d.get("sort_key", -1)),
+        )
+
+
+@dataclasses.dataclass
+class Meta:
+    """Message metadata (reference: message.h:140-268)."""
+
+    # addressing / app routing
+    sender: int = -1
+    recver: int = -1
+    app_id: int = -1
+    customer_id: int = 0
+    timestamp: int = -1          # request id for response matching
+    is_global: bool = False      # which overlay the message belongs to
+
+    # request/response semantics
+    request: bool = False
+    push: bool = False
+    pull: bool = False
+    simple_app: bool = False
+    head: int = 0                # command id for simple_app messages
+    body: str = ""               # command payload (e.g. pickled optimizer)
+
+    # control
+    control_cmd: int = Control.EMPTY
+    nodes: List[Node] = dataclasses.field(default_factory=list)
+    barrier_group: int = 0
+    msg_sig: int = 0             # for ACK/resend matching
+
+    # data typing: one entry per data part (dtype string / shape list)
+    dtypes: List[str] = dataclasses.field(default_factory=list)
+    shapes: List[List[int]] = dataclasses.field(default_factory=list)
+
+    # scheduling
+    priority: int = 0
+    version: int = 0
+    key: int = -1                # principal key (P3/TSEngine bookkeeping)
+    iters: int = 0
+
+    # compression tag for this message's val parts ("", "fp16", "bsc", "2bit")
+    compr: str = ""
+
+    # DGT block fields (reference: message.h:237-253)
+    first_key: int = -1
+    seq: int = -1
+    seq_begin: int = -1
+    seq_end: int = -1
+    msg_type: int = 0
+    val_bytes: int = 0
+    total_bytes: int = 0
+    channel: int = 0
+    tos: int = 0
+    # DGT extras (ours): dtype of the split value buffer; 4-bit quantize
+    # scale and element count for "dgt4"-tagged blocks; lossy=True when the
+    # group's unimportant blocks ride UDP (gates receiver zero-fill)
+    val_dtype: str = ""
+    dgt_scale: float = 0.0
+    dgt_n: int = 0
+    lossy: bool = False
+
+    # TSEngine bookkeeping
+    num_merge: int = 1
+
+    # number of local servers in the sending party (global-tier pushes);
+    # lets the global server weight round-completion counting so parties
+    # with multiple local servers aggregate correctly
+    party_nsrv: int = 1
+
+    # aux-array layout for KV payloads (bitmask over keys; see kv_app._pack_kv)
+    aux_mask: int = 0
+    aux_len: int = 0
+
+    # membership epoch: stamped by the van on every non-control send;
+    # servers drop pushes whose sender is declared dead or whose epoch
+    # predates the sender's rejoin (zombie fencing)
+    epoch: int = 0
+
+    # cross-node trace context (telemetry): the worker stamps the
+    # round and chunk id at issue; the van stamps trace_origin (the
+    # first sender's id) once; servers COPY all three onto forwarded
+    # global-tier messages and responses, so one round's frames share
+    # one context worker -> local server -> global server -> worker and
+    # tools/trace_merge.py can stitch per-node dumps into one timeline.
+    # -1 = untraced (control / bootstrap traffic)
+    trace_round: int = -1
+    trace_chunk: int = -1
+    trace_origin: int = -1
+
+    # geomx-healthd: compact per-van link-state digest (JSON) piggybacked
+    # on HEARTBEAT frames — the scheduler's ClusterHealthBoard ingests
+    # it; empty everywhere else so data frames pay zero bytes
+    health: str = ""
+
+    def to_dict(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if v == f.default and not isinstance(f.default, dataclasses._MISSING_TYPE):
+                continue  # omit defaults to keep frames small
+            if f.name == "nodes":
+                if v:
+                    d["nodes"] = [n.to_dict() for n in v]
+                continue
+            if f.name in ("dtypes", "shapes"):
+                if v:
+                    d[f.name] = v
+                continue
+            d[f.name] = v
+        return d
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "Meta":
+        m = Meta()
+        for k, v in d.items():
+            if k == "nodes":
+                m.nodes = [Node.from_dict(n) for n in v]
+            elif hasattr(m, k):
+                setattr(m, k, v)
+        return m
+
+
+# ---------------------------------------------------------------------------
+# Binary meta codec (FLAG_BINMETA): field-id TLV over the Meta dataclass.
+#
+# Layout: repeated { u8 field_id | payload }, only non-default fields
+# encoded (like the JSON path's default omission). Payload by kind:
+#   i  -> i64     b -> u8      f -> f64     s -> u32 len + utf-8
+#   I  -> u32 len + big-endian magnitude bytes (non-negative bigint —
+#         aux_mask carries one bit per key, arbitrarily many keys)
+#   ls -> u32 count, each (u16 len + utf-8)
+#   lli-> u32 count, each (u16 ndim + i64 * ndim)
+# `nodes` is deliberately NOT encodable: control messages carrying node
+# tables (bootstrap, barrier bookkeeping) fall back to JSON via pack().
+# Field ids are POSITIONS in _META_FIELDS. The format carries no
+# per-field skip width, so it is NOT cross-version compatible: every
+# node of a deployment must run the same build (the launch scripts
+# ship one tree to all roles, and the reference's protobuf meta makes
+# the same same-build assumption in practice). Reorders/appends are
+# fine within one build; a mixed-version cluster is not supported —
+# and to make THAT failure mode loud instead of a garbled-field crash
+# three layers up, the region leads with a one-byte codec version
+# (BINMETA_VERSION). Bump it whenever _META_FIELDS changes order or an
+# entry's wire kind; a mismatched peer is rejected with an explicit
+# version-mismatch ValueError at decode.
+# ---------------------------------------------------------------------------
+
+BINMETA_VERSION = 4
+
+_META_FIELDS: List[Tuple[str, str]] = [
+    ("sender", "i"), ("app_id", "i"), ("customer_id", "i"),
+    ("timestamp", "i"), ("request", "b"), ("push", "b"), ("pull", "b"),
+    ("simple_app", "b"), ("head", "i"), ("body", "s"),
+    ("control_cmd", "i"), ("barrier_group", "i"), ("msg_sig", "i"),
+    ("dtypes", "ls"), ("shapes", "lli"), ("version", "i"), ("key", "i"),
+    ("iters", "i"), ("compr", "s"), ("first_key", "i"), ("seq", "i"),
+    ("seq_begin", "i"), ("seq_end", "i"), ("msg_type", "i"),
+    ("val_bytes", "i"), ("total_bytes", "i"), ("channel", "i"),
+    ("tos", "i"), ("val_dtype", "s"), ("dgt_scale", "f"), ("dgt_n", "i"),
+    ("lossy", "b"), ("num_merge", "i"), ("party_nsrv", "i"),
+    ("aux_mask", "I"), ("aux_len", "i"), ("epoch", "i"),
+    ("trace_round", "i"), ("trace_chunk", "i"), ("trace_origin", "i"),
+    ("health", "s"),
+]
+_META_DEFAULTS = {f.name: ([] if isinstance(f.default,
+                                            dataclasses._MISSING_TYPE)
+                           else f.default)
+                  for f in dataclasses.fields(Meta)}
+_F64 = struct.Struct("<d")
+
+
+def _encode_meta_bin(meta: "Meta") -> bytes:
+    out: List[bytes] = [bytes((BINMETA_VERSION,))]
+    ap = out.append
+    for fid, (name, kind) in enumerate(_META_FIELDS):
+        v = getattr(meta, name)
+        if v == _META_DEFAULTS[name]:
+            continue
+        ap(bytes((fid,)))
+        if kind == "i":
+            ap(_I64.pack(v))
+        elif kind == "b":
+            ap(b"\x01" if v else b"\x00")
+        elif kind == "f":
+            ap(_F64.pack(v))
+        elif kind == "s":
+            sb = v.encode()
+            ap(_U32.pack(len(sb)))
+            ap(sb)
+        elif kind == "I":
+            bb = v.to_bytes((v.bit_length() + 7) // 8 or 1, "big")
+            ap(_U32.pack(len(bb)))
+            ap(bb)
+        elif kind == "ls":
+            ap(_U32.pack(len(v)))
+            for s in v:
+                sb = s.encode()
+                ap(_U16.pack(len(sb)))
+                ap(sb)
+        else:  # lli
+            ap(_U32.pack(len(v)))
+            for row in v:
+                ap(_U16.pack(len(row)))
+                for x in row:
+                    ap(_I64.pack(x))
+    return b"".join(out)
+
+
+def _decode_meta_bin(buf) -> "Meta":
+    m = Meta()
+    n = len(buf)
+    mv = memoryview(buf)
+    if n < 1:
+        raise ValueError("binary meta: empty region (no codec version)")
+    ver = mv[0]
+    if ver != BINMETA_VERSION:
+        raise ValueError(
+            f"binary meta codec version mismatch: peer speaks v{ver}, "
+            f"this build speaks v{BINMETA_VERSION} — all nodes of a "
+            f"deployment must run the same build")
+    off = 1
+    while off < n:
+        fid = mv[off]
+        off += 1
+        name, kind = _META_FIELDS[fid]
+        if kind == "i":
+            (v,) = _I64.unpack_from(mv, off)
+            off += 8
+        elif kind == "b":
+            v = bool(mv[off])
+            off += 1
+        elif kind == "f":
+            (v,) = _F64.unpack_from(mv, off)
+            off += 8
+        elif kind == "s":
+            (ln,) = _U32.unpack_from(mv, off)
+            off += 4
+            v = bytes(mv[off:off + ln]).decode()
+            off += ln
+        elif kind == "I":
+            (ln,) = _U32.unpack_from(mv, off)
+            off += 4
+            v = int.from_bytes(bytes(mv[off:off + ln]), "big")
+            off += ln
+        elif kind == "ls":
+            (cnt,) = _U32.unpack_from(mv, off)
+            off += 4
+            v = []
+            for _ in range(cnt):
+                (ln,) = _U16.unpack_from(mv, off)
+                off += 2
+                v.append(bytes(mv[off:off + ln]).decode())
+                off += ln
+        else:  # lli
+            (cnt,) = _U32.unpack_from(mv, off)
+            off += 4
+            v = []
+            for _ in range(cnt):
+                (ndim,) = _U16.unpack_from(mv, off)
+                off += 2
+                row = [_I64.unpack_from(mv, off + 8 * j)[0]
+                       for j in range(ndim)]
+                off += 8 * ndim
+                v.append(row)
+        setattr(m, name, v)
+    return m
+
+
+def _decode_meta(meta_b, flags: int) -> "Meta":
+    if flags & FLAG_BINMETA:
+        try:
+            return _decode_meta_bin(meta_b)
+        except (struct.error, IndexError, UnicodeDecodeError) as e:
+            # the van's reader loop drops connections on ValueError; a
+            # garbled meta region must not kill the reader thread
+            raise ValueError(f"malformed binary meta: {e}") from e
+    return Meta.from_dict(json.loads(bytes(meta_b).decode()))
+
+
+@dataclasses.dataclass
+class Message:
+    """Meta + zero or more binary data parts.
+
+    For KV traffic part 0 is the key array (int64) and subsequent parts are
+    value buffers / length arrays, mirroring ps-lite's keys/vals/lens triple
+    (reference: kv_app.h:39-77).
+    """
+
+    meta: Meta = dataclasses.field(default_factory=Meta)
+    data: List[bytes] = dataclasses.field(default_factory=list)
+
+    # -- framing ---------------------------------------------------------
+
+    def pack(self) -> bytes:
+        flags = FLAG_GLOBAL if self.meta.is_global else 0
+        if self.meta.nodes:
+            # node tables (bootstrap/topology control) stay JSON: rare,
+            # recursive, and debuggable with a packet dump
+            meta_b = json.dumps(self.meta.to_dict(),
+                                separators=(",", ":")).encode()
+        else:
+            meta_b = _encode_meta_bin(self.meta)
+            flags |= FLAG_BINMETA
+        out = [
+            _PREHDR.pack(MAGIC, self.meta.recver, flags, self.meta.priority, len(meta_b)),
+            meta_b,
+            _U32.pack(len(self.data)),
+        ]
+        for part in self.data:
+            mv = memoryview(part)
+            out.append(_U32.pack(len(mv)))
+            out.append(mv)
+        return b"".join(out)
+
+    @staticmethod
+    def unpack(buf: bytes) -> "Message":
+        magic, recver, flags, priority, meta_len = _PREHDR.unpack_from(buf, 0)
+        if magic != MAGIC:
+            raise ValueError(f"bad frame magic {magic:#x}")
+        off = _PREHDR.size
+        meta = _decode_meta(buf[off:off + meta_len], flags)
+        meta.recver = recver
+        meta.priority = priority
+        meta.is_global = bool(flags & FLAG_GLOBAL)
+        off += meta_len
+        (ndata,) = _U32.unpack_from(buf, off)
+        off += _U32.size
+        data: List[bytes] = []
+        for _ in range(ndata):
+            (n,) = _U32.unpack_from(buf, off)
+            off += _U32.size
+            data.append(bytes(buf[off:off + n]))
+            off += n
+        return Message(meta=meta, data=data)
+
+    # -- tensor helpers --------------------------------------------------
+
+    def add_array(self, arr: np.ndarray) -> None:
+        arr = np.ascontiguousarray(arr)
+        self.meta.dtypes.append(arr.dtype.str)
+        self.meta.shapes.append(list(arr.shape))
+        self.data.append(arr.tobytes())
+
+    def get_array(self, i: int) -> np.ndarray:
+        dt = np.dtype(self.meta.dtypes[i])
+        shape = tuple(self.meta.shapes[i])
+        return np.frombuffer(self.data[i], dtype=dt).reshape(shape)
+
+    def arrays(self) -> List[np.ndarray]:
+        return [self.get_array(i) for i in range(len(self.data))]
+
+    @property
+    def is_control(self) -> bool:
+        return self.meta.control_cmd != Control.EMPTY
+
+
+def read_message(sock) -> Optional[Tuple["Message", int]]:
+    """Read one message directly from a socket: (message, wire_bytes).
+
+    Avoids the join-then-reslice copies of read_frame+unpack — each data
+    part is received into its own buffer exactly once (hot-path for large
+    tensor payloads).
+    """
+    hdr = _read_exact(sock, _PREHDR.size)
+    if hdr is None:
+        return None
+    magic, recver, flags, priority, meta_len = _PREHDR.unpack(hdr)
+    if magic != MAGIC:
+        raise ValueError(f"bad frame magic {magic:#x}")
+    meta_b = _read_exact(sock, meta_len)
+    if meta_b is None:
+        return None
+    nd_b = _read_exact(sock, _U32.size)
+    if nd_b is None:
+        return None
+    (ndata,) = _U32.unpack(nd_b)
+    total = _PREHDR.size + meta_len + _U32.size
+    data: List[bytes] = []
+    for _ in range(ndata):
+        ln_b = _read_exact(sock, _U32.size)
+        if ln_b is None:
+            return None
+        (n,) = _U32.unpack(ln_b)
+        payload = _read_exact(sock, n)
+        if payload is None:
+            return None
+        data.append(payload)
+        total += _U32.size + n
+    meta = _decode_meta(meta_b, flags)
+    meta.recver = recver
+    meta.priority = priority
+    meta.is_global = bool(flags & FLAG_GLOBAL)
+    return Message(meta=meta, data=data), total
+
+
+def read_frame(sock) -> Optional[bytes]:
+    """Read one complete frame from a socket-like object; None on EOF."""
+    hdr = _read_exact(sock, _PREHDR.size)
+    if hdr is None:
+        return None
+    magic, _recver, _flags, _prio, meta_len = _PREHDR.unpack(hdr)
+    if magic != MAGIC:
+        raise ValueError(f"bad frame magic {magic:#x}")
+    meta_b = _read_exact(sock, meta_len)
+    if meta_b is None:
+        return None
+    nd_b = _read_exact(sock, _U32.size)
+    if nd_b is None:
+        return None
+    (ndata,) = _U32.unpack(nd_b)
+    parts = [hdr, meta_b, nd_b]
+    for _ in range(ndata):
+        ln_b = _read_exact(sock, _U32.size)
+        if ln_b is None:
+            return None
+        (n,) = _U32.unpack(ln_b)
+        payload = _read_exact(sock, n)
+        if payload is None:
+            return None
+        parts.append(ln_b)
+        parts.append(payload)
+    return b"".join(parts)
+
+
+def _read_exact(sock, n: int) -> Optional[bytes]:
+    """Receive exactly n bytes into a single pre-allocated buffer.
+
+    Returns the bytearray itself (no final copy); downstream consumers
+    (struct.unpack, .decode, np.frombuffer) all accept buffer objects.
+    """
+    buf = bytearray(n)
+    view = memoryview(buf)
+    got = 0
+    while got < n:
+        try:
+            r = sock.recv_into(view[got:], n - got)
+        except (ConnectionResetError, OSError):
+            return None
+        if r == 0:
+            return None
+        got += r
+    return buf

@@ -1,0 +1,328 @@
+"""Metrics registry: the one funnel for cross-node observability.
+
+The profiler (:mod:`geomx_tpu_torch.profiler`) answers "when did things
+happen" — chrome-trace spans on one process's timeline. This module
+answers "how much": labeled counters (bytes and message counts per
+tier/verb/codec, resends, give-ups, sanitizer violations), gauges
+(membership epoch, aggregation queue depths) and histograms
+(round latency, per-phase times), registered process-wide so every
+node role — worker, server, both tiers of a server process — feeds
+the same registry and a single JSON snapshot describes the node.
+
+Design constraints, in order:
+
+- **near-free when disabled** (the default): every mutator is one
+  module-global bool check away from returning — no locks, no dict
+  churn, no string building. ``GEOMX_TELEMETRY=1`` (Config.telemetry)
+  turns it on per node.
+- **lock-cheap when enabled**: one module lock around plain-dict
+  upserts; keys are ``(name, ((label, value), ...))`` tuples built
+  without formatting.
+- **one funnel for instants**: :func:`event` forwards point-in-time
+  markers to ``profiler.instant`` (sanitizer violations, resend
+  give-ups, chunk retries, membership changes render on the merged
+  trace timeline) and counts them here when enabled. geomx-lint rule
+  GX-M401 keeps raw ``profiler.instant``/``profiler.counter`` calls
+  out of the rest of the tree so metric names can't drift back into
+  ad-hoc strings.
+
+Snapshots: :func:`snapshot` returns plain dicts; :func:`snapshot_json`
+the canonical JSON; :func:`export_round` writes one file per round
+into ``GEOMX_TELEMETRY_DIR`` (Config.telemetry_dir) for the chaos
+matrix to collect. :func:`wan_bytes` sums the global-tier send byte
+counters — the number ROADMAP item 2's "WAN bytes/round down >=4x"
+gates on, embedded by bench.py as ``wan_bytes_per_round``.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import threading
+from typing import Any, Dict, List, Optional, Tuple
+
+from geomx_tpu_torch import profiler
+
+_LabelKey = Tuple[str, Tuple[Tuple[str, Any], ...]]
+
+# version of the snapshot()/snapshot_json() document shape. Downstream
+# consumers (the health board, the item-5 transport controller, chaos
+# matrix collectors) pin on it to detect drift; bump it whenever a
+# top-level key is added/removed/renamed or a value shape changes, and
+# update the gate test in tests/test_telemetry.py in the same change.
+SCHEMA_VERSION = 1
+
+_enabled = False
+_lock = threading.Lock()
+_counters: Dict[_LabelKey, float] = {}
+_gauges: Dict[_LabelKey, float] = {}
+# key -> [count, sum, min, max, bucket_counts]
+_hists: Dict[_LabelKey, List[Any]] = {}
+_export_dir = ""
+
+# histogram bucket upper bounds (values are whatever unit the caller
+# observes — ms for latencies); one overflow bucket rides at the end
+BUCKETS: Tuple[float, ...] = (1, 2, 5, 10, 25, 50, 100, 250, 500,
+                              1000, 2500, 5000, 10000)
+
+
+def configure(enabled: Optional[bool] = None,
+              export_dir: Optional[str] = None) -> None:
+    """Apply config: ``None`` leaves a setting untouched, so several
+    in-process nodes (simulate.InProcessHiPS) can each apply their own
+    Config without the last constructor turning the registry back off."""
+    global _enabled, _export_dir
+    if enabled is not None:
+        _enabled = enabled
+    if export_dir is not None:
+        _export_dir = export_dir
+
+
+def enable(on: bool = True) -> None:
+    global _enabled
+    _enabled = on
+
+
+def enabled() -> bool:
+    return _enabled
+
+
+def _key(name: str, labels: Dict[str, Any]) -> _LabelKey:
+    return (name, tuple(sorted(labels.items())))
+
+
+# ---------------------------------------------------------------------------
+# mutators
+# ---------------------------------------------------------------------------
+
+def counter_inc(name: str, value: float = 1, **labels: Any) -> None:
+    if not _enabled:
+        return
+    k = _key(name, labels)
+    with _lock:
+        _counters[k] = _counters.get(k, 0) + value
+
+
+def gauge_set(name: str, value: float, **labels: Any) -> None:
+    if not _enabled:
+        return
+    k = _key(name, labels)
+    with _lock:
+        _gauges[k] = value
+
+
+def histogram_obs(name: str, value: float, **labels: Any) -> None:
+    if not _enabled:
+        return
+    k = _key(name, labels)
+    with _lock:
+        h = _hists.get(k)
+        if h is None:
+            h = _hists[k] = [0, 0.0, math.inf, -math.inf,
+                             [0] * (len(BUCKETS) + 1)]
+        h[0] += 1
+        h[1] += value
+        h[2] = min(h[2], value)
+        h[3] = max(h[3], value)
+        for i, ub in enumerate(BUCKETS):
+            if value <= ub:
+                h[4][i] += 1
+                break
+        else:
+            h[4][-1] += 1
+
+
+def event(name: str, cat: str = "telemetry", **args: Any) -> None:
+    """Point-in-time marker: renders as a ``profiler.instant`` on the
+    trace timeline (the profiler gates on its own run state) AND counts
+    here per name when telemetry is enabled. The only sanctioned way to
+    emit instants outside this module (geomx-lint GX-M401)."""
+    profiler.instant(name, cat=cat, **args)
+    if _enabled:
+        k = _key("event." + name, {})
+        with _lock:
+            _counters[k] = _counters.get(k, 0) + 1
+
+
+def sample(name: str, value: float, cat: str = "telemetry",
+           **labels: Any) -> None:
+    """A gauge sample that ALSO rides the trace as a ``profiler.counter``
+    track (queue depths, dead-node counts plot over time in Perfetto)."""
+    profiler.counter(name, value, cat=cat)
+    gauge_set(name, value, **labels)
+
+
+# ---------------------------------------------------------------------------
+# snapshots
+# ---------------------------------------------------------------------------
+
+def _render_key(k: _LabelKey) -> str:
+    name, labels = k
+    if not labels:
+        return name
+    inner = ",".join(f"{lk}={lv}" for lk, lv in labels)
+    return f"{name}{{{inner}}}"
+
+
+def snapshot() -> Dict[str, Any]:
+    """Plain-dict snapshot: counters/gauges as ``name{k=v,...} -> value``,
+    histograms as ``-> {count, sum, min, max, buckets}``."""
+    with _lock:
+        counters = {_render_key(k): v for k, v in _counters.items()}
+        gauges = {_render_key(k): v for k, v in _gauges.items()}
+        hists = {}
+        for k, (cnt, tot, lo, hi, buckets) in _hists.items():
+            hists[_render_key(k)] = {
+                "count": cnt, "sum": tot,
+                "min": (None if cnt == 0 else lo),
+                "max": (None if cnt == 0 else hi),
+                "buckets": list(buckets),
+            }
+    return {"schema_version": SCHEMA_VERSION, "counters": counters,
+            "gauges": gauges, "histograms": hists,
+            "bucket_bounds": list(BUCKETS)}
+
+
+def snapshot_json(indent: Optional[int] = None) -> str:
+    return json.dumps(snapshot(), indent=indent, sort_keys=True)
+
+
+def export_round(round_idx: int, dirpath: Optional[str] = None) -> str:
+    """Write this node's snapshot for one round; returns the path ("" when
+    no export directory is configured). Atomic (tmp + rename) so the
+    chaos matrix never collects a torn file."""
+    d = _export_dir if dirpath is None else dirpath
+    if not d:
+        return ""
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, f"metrics_round{round_idx}_pid{os.getpid()}.json")
+    tmp = f"{path}.tmp.{threading.get_ident()}"
+    with open(tmp, "w") as f:
+        f.write(snapshot_json(indent=1))
+    os.replace(tmp, path)
+    return path
+
+
+def wan_bytes(snap: Optional[Dict[str, Any]] = None) -> float:
+    """Total bytes put on the WAN (global-tier van sends) in ``snap``
+    (default: the live registry). Counting the SEND side only keeps the
+    number honest when both endpoints feed one in-process registry."""
+    if snap is None:
+        snap = snapshot()
+    total = 0.0
+    for key, v in snap.get("counters", {}).items():
+        if key.startswith("van.bytes_sent{") and "tier=global" in key:
+            total += v
+    return total
+
+
+def wan_bytes_by_codec(snap: Optional[Dict[str, Any]] = None
+                       ) -> Dict[str, float]:
+    """WAN send bytes broken out per wire codec: parses the ``codec=``
+    label out of the same ``van.bytes_sent{...tier=global...}`` counters
+    :func:`wan_bytes` sums, so the two always agree. Keys are the wire
+    tags ("raw", "fp16", "2bit", "bsc", "bsc16", ...) — the quantized
+    combined wire's >=4x drop shows up as raw/fp32 bytes moving into
+    the narrow-codec buckets."""
+    if snap is None:
+        snap = snapshot()
+    out: Dict[str, float] = {}
+    for key, v in snap.get("counters", {}).items():
+        if not (key.startswith("van.bytes_sent{")
+                and "tier=global" in key):
+            continue
+        codec = "raw"
+        inner = key[key.index("{") + 1:key.rindex("}")]
+        for part in inner.split(","):
+            if part.startswith("codec="):
+                codec = part[len("codec="):]
+                break
+        out[codec] = out.get(codec, 0.0) + v
+    return out
+
+
+def _per_link(prefix: str, table: Dict[str, float]
+              ) -> Dict[Tuple[int, int], float]:
+    """Collapse ``name{...src=A,dst=B...}`` rows into ``{(A, B): v}``."""
+    out: Dict[Tuple[int, int], float] = {}
+    for key, v in table.items():
+        if not key.startswith(prefix + "{"):
+            continue
+        src = dst = None
+        inner = key[key.index("{") + 1:key.rindex("}")]
+        for part in inner.split(","):
+            if part.startswith("src="):
+                src = int(part[len("src="):])
+            elif part.startswith("dst="):
+                dst = int(part[len("dst="):])
+        if src is not None and dst is not None:
+            out[(src, dst)] = v
+    return out
+
+
+def link_goodput(snap: Optional[Dict[str, Any]] = None
+                 ) -> Dict[Tuple[int, int], float]:
+    """Observed per-link goodput (MB/s), keyed ``(src, dst)`` — the
+    TSEngine sender's push->ack measurement (``link.goodput_mb_s``
+    gauges). Under GEOMX_SHAPE_PLAN this reflects the emulated link,
+    which is exactly what lets the scheduler route around thin pipes."""
+    if snap is None:
+        snap = snapshot()
+    return _per_link("link.goodput_mb_s", snap.get("gauges", {}))
+
+
+def link_shaped_delay_ms(snap: Optional[Dict[str, Any]] = None
+                         ) -> Dict[Tuple[int, int], float]:
+    """Last emulated delivery delay (ms) the shaper imposed per link
+    (``link.shaped_delay_ms`` gauges, keyed ``(src, dst)``)."""
+    if snap is None:
+        snap = snapshot()
+    return _per_link("link.shaped_delay_ms", snap.get("gauges", {}))
+
+
+def mesh_bytes(snap: Optional[Dict[str, Any]] = None) -> float:
+    """Total bytes moved by mesh-party device collectives in ``snap``
+    (default: the live registry). These live under their own counter
+    family (``mesh.bytes{tier=mesh,...}``) precisely so
+    :func:`wan_bytes` — which matches ``van.bytes_sent{...tier=global``
+    only — can never absorb them."""
+    if snap is None:
+        snap = snapshot()
+    total = 0.0
+    for key, v in snap.get("counters", {}).items():
+        if key.startswith("mesh.bytes{") and "tier=mesh" in key:
+            total += v
+    return total
+
+
+def mesh_bytes_by_codec(snap: Optional[Dict[str, Any]] = None
+                        ) -> Dict[str, float]:
+    """Mesh-tier collective bytes broken out per GEOMX_MESH_CODEC —
+    the ``codec=`` label on the same ``mesh.bytes{tier=mesh,...}``
+    counters :func:`mesh_bytes` sums ("none" = the fp32 psum model;
+    "int8"/"2bit"/"fp16" = the quantized ring's codes + sidecar)."""
+    if snap is None:
+        snap = snapshot()
+    out: Dict[str, float] = {}
+    for key, v in snap.get("counters", {}).items():
+        if not (key.startswith("mesh.bytes{") and "tier=mesh" in key):
+            continue
+        codec = "none"
+        inner = key[key.index("{") + 1:key.rindex("}")]
+        for part in inner.split(","):
+            if part.startswith("codec="):
+                codec = part[len("codec="):]
+                break
+        out[codec] = out.get(codec, 0.0) + v
+    return out
+
+
+def reset() -> None:
+    global _enabled, _export_dir
+    with _lock:
+        _counters.clear()
+        _gauges.clear()
+        _hists.clear()
+    _enabled = False
+    _export_dir = ""

@@ -1,8 +1,10 @@
 """Device-resident sparse trainer: params never leave the accelerator.
 
-Counterpart of ``geomx_tpu/trainer_device.py`` (monolithic round). The
-parameters stay on ``device`` as one flat fp32 vector, beside the BSC
-buffers u and v and the optional momentum, and each round moves only:
+Counterpart of ``geomx_tpu/trainer_device.py`` (the monolithic and the
+pipelined round; the mesh-party branches wait for the intra-party tier).
+The parameters stay on ``device`` as one flat fp32 vector, beside the
+BSC buffers u and v and the optional momentum, and each round moves
+only:
 
 - down: the per-key BSC-selected (values, indices) of the
   momentum-corrected gradient, with the loss, as ONE packed int32 array;
@@ -37,7 +39,9 @@ from typing import Any, Callable, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from geomx_tpu_torch import profiler
 from geomx_tpu_torch._device import resolve_device
+from geomx_tpu_torch.kvstore.frontier import plan_chunks
 from geomx_tpu_torch.ops import _fma
 
 __all__ = ["DeviceResidentTrainer"]
@@ -87,11 +91,14 @@ class DeviceResidentTrainer:
         self._sparse_wire = (hasattr(self.kv, "push_bsc")
                              and hasattr(self.kv, "pull_bsc"))
         kcfg = getattr(self.kv, "cfg", None)
-        if (bool(getattr(kcfg, "overlap", False)) and self._sparse_wire
-                and hasattr(self.kv, "push_pull_bsc_batch_async")):
-            raise NotImplementedError(
-                "the pipelined round (GEOMX_OVERLAP) needs the HiPS host "
-                "layers, not ported yet (ROADMAP queue A item 3)")
+        # pipelined round (GEOMX_OVERLAP + P3_SLICE_BYTES): keys group in
+        # layer order into ~P3_SLICE_BYTES wire-byte chunks (~8 bytes per
+        # selected element); each chunk's D2H fetch, async combined round
+        # and apply flow independently — chunk i applies while chunk
+        # i+1's bytes are still on the wire. 0 = one chunk.
+        self._pipeline = (bool(getattr(kcfg, "overlap", False))
+                          and self._sparse_wire
+                          and hasattr(self.kv, "push_pull_bsc_batch_async"))
         # quantized combined wire: the store ships values as float16;
         # narrow on the device with error feedback into v
         self._wire16 = bool(getattr(kcfg, "wire_codec", ""))
@@ -118,6 +125,36 @@ class DeviceResidentTrainer:
         # the aggregate has <= nw*k nonzeros: the upload is padded to
         # that fixed size
         self._up_cap = nw * self.k
+        if self._pipeline:
+            self._chunks = plan_chunks(
+                list(range(len(self._sizes))), [8 * kk for kk in self._ks],
+                int(getattr(kcfg, "p3_slice_bytes", 0)))
+            # per chunk: selection range, flat param range, upload cap —
+            # chunk key runs are contiguous, so each covers one flat
+            # slice [flo, flo+fsize) and the slices partition [0, total)
+            meta = []
+            for ch in self._chunks:
+                a, b = ch.items[0], ch.items[-1]
+                sel_lo, sel_hi = int(self._kofs[a]), int(self._kofs[b + 1])
+                flo, fhi = int(self._offsets[a]), int(self._offsets[b + 1])
+                meta.append((sel_lo, sel_hi, flo, fhi - flo,
+                             nw * (sel_hi - sel_lo)))
+            self._chunk_meta = meta
+
+    @property
+    def pipelined(self) -> bool:
+        """True when rounds run pipelined (GEOMX_OVERLAP with an async
+        sparse wire). Setting it False runs the serial round from then on,
+        with the same post-round state; True is allowed only where the
+        store allowed the pipeline at construction."""
+        return self._pipeline
+
+    @pipelined.setter
+    def pipelined(self, on: bool) -> None:
+        if on and not hasattr(self, "_chunk_meta"):
+            raise ValueError("this store has no pipelined round (needs "
+                             "GEOMX_OVERLAP and an async sparse wire)")
+        self._pipeline = bool(on)
 
     # -- device steps ----------------------------------------------------
 
@@ -164,6 +201,35 @@ class DeviceResidentTrainer:
             loss.detach().to(torch.float32).reshape(1).view(torch.int32),
             vals.view(torch.int32), idx])
         return packed, u, v
+
+    def _fwd_chunks(self, flat, u, v, X, y):
+        """Chunked twin of :meth:`_fwd_compress`: ``(loss, packs, u, v)``
+        with one packed int32 array [vals as int32 bits, idx] PER CHUNK,
+        so the host can fetch and dispatch each chunk independently."""
+        loss, g = self._grad_cat(flat, X, y)
+        loss, vals, idx, u, v = self._bsc(loss, g / self._num_workers, u, v)
+        packs = [torch.cat([vals[lo:hi].view(torch.int32), idx[lo:hi]])
+                 for lo, hi, _f, _s, _c in self._chunk_meta]
+        return loss.detach().to(torch.float32), packs, u, v
+
+    def _apply_chunk(self, flat, mom, up, flo: int, fsize: int):
+        """Sparse SGD (+ momentum) of one chunk's flat slice [flo,
+        flo+fsize) from its upload [vals(cap) as int32 bits, idx(cap)
+        CHUNK-relative]; the same roundings as :meth:`_apply`, so the
+        chunked round's state is bit-identical to the monolithic one.
+        Updates ``flat`` and ``mom`` in place and returns them."""
+        cap = up.shape[0] // 2
+        vals = up[:cap].view(torch.float32)
+        cidx = up[cap:].long()
+        seg = flat[flo:flo + fsize]
+        if mom is None:
+            g = torch.zeros_like(seg).index_add_(0, cidx, vals)
+            seg.copy_(_fma(g, -self.learning_rate, seg))
+            return flat, None
+        mseg = mom[flo:flo + fsize]
+        mseg.mul_(self.momentum).index_add_(0, cidx, vals)
+        seg.copy_(_fma(mseg, -self.learning_rate, seg))
+        return flat, mom
 
     def _apply(self, flat, mom, packed):
         """Sparse SGD (+ momentum) from the packed upload [vals(cap) as
@@ -223,14 +289,31 @@ class DeviceResidentTrainer:
         up = torch.zeros(2 * self._up_cap, dtype=torch.int32,
                          device=self.device)
         self._apply(self._flat, self._mom, up)
+        if self._pipeline:
+            self._fwd_chunks(self._flat, self._u, self._v, X, y)
+            for _lo, _hi, flo, fsize, cap in self._chunk_meta:
+                up0 = torch.zeros(2 * cap, dtype=torch.int32,
+                                  device=self.device)
+                # on copies: the chunked apply updates in place
+                self._apply_chunk(
+                    self._flat.clone(),
+                    None if self._mom is None else self._mom.clone(),
+                    up0, flo, fsize)
         self._sync()
 
     # -- one round -------------------------------------------------------
 
     def step(self, X, y) -> float:
         """One FSA round: device grad+compress, kv aggregate, device
-        sparse apply. Returns the loss as a host float."""
+        sparse apply. Returns the loss as a host float.
+
+        With the pipelined path active (GEOMX_OVERLAP and an async
+        sparse wire) the round runs per chunk — dispatch every chunk's
+        fetch+send first, then apply each as its aggregate lands — with
+        the same post-round state."""
         X, y = self._to_device(X), self._to_device(y)
+        if self._pipeline:
+            return self._step_pipelined(X, y)
         packed_d, self._u, self._v = self._fwd_compress(
             self._flat, self._u, self._v, X, y)
         # ONE compact device->host transfer (1 + 2K int32 vs total)
@@ -241,11 +324,106 @@ class DeviceResidentTrainer:
                                             self._upload(ups, upi))
         return loss
 
+    def _fetch_async(self, packs: List[torch.Tensor]):
+        """Start every chunk's D2H copy at once; returns per-chunk
+        ``(host tensor, event)`` pairs (event None on the CPU)."""
+        if self.device.type != "cuda":
+            return [(p, None) for p in packs]
+        out = []
+        for p in packs:
+            h = torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
+            h.copy_(p, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record()
+            out.append((h, ev))
+        return out
+
+    @staticmethod
+    def _host(fetched) -> np.ndarray:
+        h, ev = fetched
+        if ev is not None:
+            ev.synchronize()
+        return h.numpy()
+
+    def _chunk_wire_parts(self, ci: int, arr: np.ndarray):
+        """Split chunk ``ci``'s fetched pack into the per-key wire lists
+        (keys, values, KEY-relative indices) push_pull_bsc_batch expects."""
+        sel_lo, sel_hi, _flo, _fsize, _cap = self._chunk_meta[ci]
+        kc = sel_hi - sel_lo
+        vals = arr[:kc].view(np.float32)
+        aidx = arr[kc:].astype(np.int64)
+        keys, vlist, ilist = [], [], []
+        for i in self._chunks[ci].items:
+            lo = int(self._kofs[i]) - sel_lo
+            hi = int(self._kofs[i + 1]) - sel_lo
+            keys.append(self.begin_key + i)
+            vlist.append(vals[lo:hi])
+            ilist.append(aidx[lo:hi] - int(self._offsets[i]))
+        return keys, vlist, ilist
+
+    def _chunk_up(self, ci: int, agg: Dict) -> torch.Tensor:
+        """Chunk ``ci``'s fixed-size upload on the device from its keys'
+        aggregated (values, key-relative indices): [vals(cap) as int32
+        bits, idx(cap) chunk-relative], zero-padded."""
+        _sel_lo, _sel_hi, flo, _fsize, cap = self._chunk_meta[ci]
+        ups, upi = [], []
+        for i in self._chunks[ci].items:
+            avals, aidx = agg[self.begin_key + i]
+            ups.append(avals)
+            upi.append(aidx + (int(self._offsets[i]) - flo))
+        cat_v = np.concatenate(ups)
+        cat_i = np.concatenate(upi)
+        n = len(cat_v)
+        if n > cap:
+            raise RuntimeError(
+                f"aggregated selection ({n}) exceeds chunk upload "
+                f"capacity ({cap}) — is the PS tier running an "
+                "optimizer? DeviceResidentTrainer requires aggregator "
+                "mode")
+        up = np.zeros(2 * cap, np.int32)
+        up[:n] = np.asarray(cat_v, np.float32).view(np.int32)
+        up[cap:cap + n] = cat_i.astype(np.int32)
+        return torch.from_numpy(up).to(self.device)
+
+    def _step_pipelined(self, X, y) -> float:
+        """Chunked overlapped round: fetch+dispatch every chunk in layer
+        order (priority -chunk), then apply each chunk's aggregate as it
+        arrives. Chunk flat ranges partition [0, total) and the
+        arithmetic per coordinate is that of the monolithic apply, so
+        the post-round state is bit-identical to the serial path."""
+        loss_d, packs, self._u, self._v = self._fwd_chunks(
+            self._flat, self._u, self._v, X, y)
+        fetched = self._fetch_async(packs)
+        futs = []
+        for ci in range(len(self._chunks)):
+            with profiler.chunk_scope("fetch", ci):
+                arr = self._host(fetched[ci])
+            keys, vlist, ilist = self._chunk_wire_parts(ci, arr)
+            # slice_bytes=0: this call IS one chunk — one message per
+            # server, the store must not re-slice it
+            futs.append(self.kv.push_pull_bsc_batch_async(
+                keys, vlist, ilist, priority=-ci, slice_bytes=0))
+        # the loss fetch rides behind the dispatches (the wire is
+        # already flying when this waits on the device)
+        loss = float(loss_d)
+        for ci, fut in enumerate(futs):
+            agg = fut.results()
+            up = self._chunk_up(ci, agg)
+            _sel_lo, _sel_hi, flo, fsize, _cap = self._chunk_meta[ci]
+            with profiler.chunk_scope("apply", ci):
+                self._flat, self._mom = self._apply_chunk(
+                    self._flat, self._mom, up, flo, fsize)
+        return loss
+
     def step_timed(self, X, y) -> Tuple[float, Dict[str, float]]:
         """One round with a per-phase wall-ms breakdown (compute / d2h /
         wire / h2d / apply), each phase fenced by a synchronise or a
-        value fetch. Audit tool, not the training loop."""
+        value fetch. Phases run serially, the pipelined round's chunks
+        included, so each bucket is attributable. Audit tool, not the
+        training loop."""
         X, y = self._to_device(X), self._to_device(y)
+        if self._pipeline:
+            return self._step_timed_pipelined(X, y)
         t0 = time.perf_counter()
         packed_d, self._u, self._v = self._fwd_compress(
             self._flat, self._u, self._v, X, y)
@@ -259,6 +437,38 @@ class DeviceResidentTrainer:
         self._sync()
         t4 = time.perf_counter()
         self._flat, self._mom = self._apply(self._flat, self._mom, up_d)
+        self._sync()
+        t5 = time.perf_counter()
+        return loss, {
+            "compute_ms": (t1 - t0) * 1e3,
+            "d2h_ms": (t2 - t1) * 1e3,
+            "wire_ms": (t3 - t2) * 1e3,
+            "h2d_ms": (t4 - t3) * 1e3,
+            "apply_ms": (t5 - t4) * 1e3,
+        }
+
+    def _step_timed_pipelined(self, X, y):
+        t0 = time.perf_counter()
+        loss_d, packs, self._u, self._v = self._fwd_chunks(
+            self._flat, self._u, self._v, X, y)
+        loss = float(loss_d)                  # value fetch = fence
+        t1 = time.perf_counter()
+        arrs = [p.cpu().numpy() for p in packs]
+        t2 = time.perf_counter()
+        futs = [self.kv.push_pull_bsc_batch_async(
+                    *self._chunk_wire_parts(ci, arrs[ci]),
+                    priority=-ci, slice_bytes=0)
+                for ci in range(len(self._chunks))]
+        aggs = [f.results() for f in futs]
+        t3 = time.perf_counter()
+        ups = [self._chunk_up(ci, aggs[ci])
+               for ci in range(len(self._chunks))]
+        self._sync()
+        t4 = time.perf_counter()
+        for ci, up in enumerate(ups):
+            _sl, _sh, flo, fsize, _cap = self._chunk_meta[ci]
+            self._flat, self._mom = self._apply_chunk(
+                self._flat, self._mom, up, flo, fsize)
         self._sync()
         t5 = time.perf_counter()
         return loss, {

@@ -4,7 +4,7 @@ The port imports torch and never jax, flax or geomx_tpu (checked both at
 run time in a fresh interpreter and statically over every source file,
 ``chip_smoke.py`` included); its entry points raise without a CUDA card
 unless the caller asks for the CPU; and the kv store names it has not
-ported raise instead of quietly becoming the local store.
+ported raise instead of quietly becoming another store.
 """
 
 import ast
@@ -92,9 +92,23 @@ def test_example_runs_on_the_cpu_when_asked(capsys):
 
 @pytest.mark.parametrize("name", ["dist_sync", "dist_async", "dist",
                                   "dist_sync_mesh", "nccl"])
-def test_unported_kvstores_raise(name):
+def test_unported_kvstores_raise(name, monkeypatch):
+    """The mesh-party and nccl stores still raise; the HiPS names map to
+    ``KVStoreDist`` with the JAX factory's ``sync_global`` (checked with
+    the class stubbed out, so no node starts)."""
+    import geomx_tpu_torch.kvstore.dist as dist
+
+    made = []
+    monkeypatch.setattr(dist, "KVStoreDist",
+                        lambda sync_global: made.append(sync_global) or "kv")
+    want = {"dist_sync": True, "dist_async": False, "dist": True}
+    if name in want:
+        assert gx.kv.create(name) == "kv"
+        assert made == [want[name]]
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         gx.kv.create(name)
+    assert made == []
 
 
 def test_local_store_matches_the_jax_package():
