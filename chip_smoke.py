@@ -45,7 +45,24 @@ workers' parameters bit for bit. 4b is ``bench_transformer_bsc``: the
 59M transformer, 10 counted rounds (finite, declining losses; 8 launches
 of each flash kernel per step per worker), the ``step_timed`` split with
 the pipelined and the serial round, one profiled round, and the
-replicas bit for bit.
+replicas bit for bit. Its variant puts BSC (threshold 0.01) on the
+global tier, as ``examples/cnn_bsc.py`` does: 4 counted rounds, their
+WAN bytes and ``step_timed`` wire beside the dense rounds', and the host
+spans of those rounds.
+
+Phase 5 runs the BASELINE.md feature configs over the same topology,
+each through its example's ``run_worker`` (the master's part first),
+LeNet at full width, 128 images per worker per round, cuDNN exact: 5a
+the no-kvstore baseline (batch 256, Adam, 100 steps) and ``cnn.py``'s
+FSA with Adam on the global server for 100 rounds, within 0.02 of the
+baseline's accuracy; 5b ``cnn_hfa.py`` (K1 4, K2 2, local Adam), within
+0.02; 5c 40 rounds each of ``cnn_fp16.py`` (multi-precision, bf16
+compute), ``cnn_bsc.py`` at 0.01 and at 0.2, ``cnn_mpq.py`` (0.01, size
+bound 20,000) and ``cnn.py -ms`` (MixedSync), above chance. Each prints
+its accuracies, step times, img/s and WAN bytes per round beside the
+payload counted from the shapes, and fails on a non-finite loss, WAN
+bytes outside that count, or replicas that differ where the global tier
+is synchronous.
 
 Exits non-zero without a card, outside a checkout, or when any check
 fails. The line before the last is the kernel table as JSON; the last is
@@ -62,6 +79,7 @@ import subprocess
 import sys
 import threading
 import time
+from unittest import mock
 
 SLICE = dict(B=8, T=511, H=8, D=64)        # the transformer's attention
 MODEL = dict(dim=512, depth=8, heads=8, vocab=32768, seq_len=512)
@@ -99,7 +117,14 @@ LENET = dict(batch=128, threshold=0.02, lr=0.05, rounds=200, timed=5,
 PARITY_TOL_BSC = 0.02       # of the 1.0 the dense run reaches on this data
 # phase 4b: bench.py bench_transformer_bsc's settings
 HIPS_TF = dict(threshold=0.01, lr=0.05, momentum=0.9, batches=4, rounds=10,
-               timed=2, alternations=2)
+               timed=2, alternations=2, bsc_rounds=4)
+# phase 5: the BASELINE.md feature configs through their examples'
+# run_worker (bench.py BATCH_PER_WORKER :52, ACC_ITERS :53, bench_nokv
+# :140, bench_hips :246, bench_hips_hfa :746, the tolerances :75-81)
+FEATURE = dict(batch=128, acc_iters=100, codec_rounds=40, lr=1e-3,
+               hfa_k1=4, hfa_k2=2, threshold=0.01, mpq_bound=20000,
+               chance=0.2)
+PARITY_TOL_FSA = PARITY_TOL_HFA = 0.02
 JOIN_S = 900                # per topology: a hung worker fails the phase
 
 
@@ -744,26 +769,44 @@ def reset(counters):
             c[key] = 0
 
 
-def run_hips(torch, np, worker, leaves0, tag, barriers=(), main_fn=None):
-    """Start a live two-party HiPS (one worker per party, all roles on
-    threads of this process, every byte over loopback sockets), init the
-    keys from the master, run ``worker(kv, widx)`` on both party workers
-    at once (and ``main_fn()`` on this thread meanwhile) and stop the
-    topology. A failure in either worker breaks ``barriers`` and fails
-    the phase; a hung worker fails it after JOIN_S."""
-    from geomx_tpu_torch.simulate import InProcessHiPS
-
-    t = time.perf_counter()
-    topo = InProcessHiPS(num_parties=2, workers_per_party=1).start()
-    errors = []
-
-    def master_init(kv):
+def init_keys(np, leaves0):
+    """The master's part when the phase drives the trainers itself: init
+    every key from ``leaves0``."""
+    def master(kv):
         for i, leaf in enumerate(leaves0):
             kv.init(i, np.array(leaf))
         kv.wait()
+    return master
+
+
+def run_hips(worker, master, tag, barriers=(), main_fn=None, topo_kw=None):
+    """Start a live two-party HiPS (one worker per party, all roles on
+    threads of this process, every byte over loopback sockets, topology
+    options ``topo_kw``), run ``master(kv)`` on the master worker, then
+    ``worker(kv, widx)`` on both party workers at once (``main_fn()`` on
+    this thread meanwhile) and stop the topology. The master's settings
+    and init reach the global tier before any party pulls the initial
+    values (ROADMAP queue C item 1). A failure in either worker breaks
+    ``barriers`` and fails the phase; a hung worker fails it after
+    JOIN_S."""
+    from geomx_tpu_torch.simulate import InProcessHiPS
+
+    t = time.perf_counter()
+    topo = InProcessHiPS(num_parties=2, workers_per_party=1,
+                         **(topo_kw or {})).start()
+    errors = []
+    master_done = threading.Event()
+
+    def master_fn(kv):
+        try:
+            master(kv)
+        finally:
+            master_done.set()
 
     def one(kv):
         try:
+            if not master_done.wait(JOIN_S):
+                raise TimeoutError("the master did not finish its set-up")
             worker(kv, topo.workers.index(kv))
         except BaseException:
             for b in barriers:
@@ -772,7 +815,7 @@ def run_hips(torch, np, worker, leaves0, tag, barriers=(), main_fn=None):
 
     def body():
         try:
-            topo.run_workers(one, include_master=master_init,
+            topo.run_workers(one, include_master=master_fn,
                              timeout=JOIN_S)
         except BaseException as e:  # noqa: BLE001 — re-raised below
             errors.append(e)
@@ -869,7 +912,7 @@ def phase4a(torch, np, fa, tb):
                       wall=wall, leaves=tr.leaves,
                       pipelined=tr.pipelined, batches=len(batches))
 
-    run_hips(torch, np, worker, leaves0, "phase4a", barriers=[bar])
+    run_hips(worker, init_keys(np, leaves0), "phase4a", barriers=[bar])
     img_s = LENET["thr_rounds"] * B * 2 / max(r["wall"] for r in res.values())
     wan_round = (wan[1] - wan[0]) / LENET["thr_rounds"]
     print(f"[phase4a] LeNet, 2 parties x 1 worker, {B} images per worker, "
@@ -996,8 +1039,8 @@ def phase4b(torch, np, fa, tb):
         prof["host"] = sorted(spans.items(), key=lambda kv: -kv[1])[:10]
         hostprof.reset()
 
-    run_hips(torch, np, worker, leaves0, "phase4b", barriers=[bar, bar3],
-             main_fn=profile_one_round)
+    run_hips(worker, init_keys(np, leaves0), "phase4b",
+             barriers=[bar, bar3], main_fn=profile_one_round)
     tok_s = R * BATCH * MODEL["seq_len"] * 2 / max(r["wall"]
                                                    for r in res.values())
     print(f"[phase4b] 59M transformer over 2 parties x 1 worker: "
@@ -1049,7 +1092,299 @@ def phase4b(torch, np, fa, tb):
                 fail(f"phase4b profile: {name} ran {n} times in the "
                      f"round, expected {MODEL['depth']} per worker")
     check_replicas(np, [res[0]["leaves"], res[1]["leaves"]], "phase4b")
-    return counts
+    dense = {"wan": prof["wan"],
+             "wire_ms": [medians(res[w]["on"])["wire_ms"] for w in (0, 1)]}
+    return counts, dense
+
+
+def phase4b_bsc(torch, np, dense, dev="cuda"):
+    """4b's variant with BSC on the global tier, as ``cnn_bsc.py`` sets
+    it (``set_gradient_compression``, threshold 0.01): one round through
+    the new wire, then HIPS_TF["bsc_rounds"] counted ``step_timed``
+    rounds with the host profiler on; WAN bytes, the wire split beside
+    the dense rounds' and the host spans that hold the round."""
+    from geomx_tpu_torch import profiler as hostprof
+    from geomx_tpu_torch import telemetry
+    from geomx_tpu_torch.examples.transformer_bsc_device import (
+        build_transformer_grad_step, synth_batch)
+    from geomx_tpu_torch.trainer_device import DeviceResidentTrainer
+
+    R = HIPS_TF["bsc_rounds"]
+    leaves0, grad_step = build_transformer_grad_step(
+        **MODEL, compute_dtype=torch.bfloat16, device=dev, attn="auto")
+    warm = threading.Lock()
+    bar = threading.Barrier(2)
+    res, wan, spans = {}, {}, {}
+
+    def master(kv):
+        kv.set_gradient_compression({"type": "bsc",
+                                     "threshold": HIPS_TF["threshold"]})
+        init_keys(np, leaves0)(kv)
+
+    def worker(kv, w):
+        tr = DeviceResidentTrainer(
+            list(leaves0), kv, grad_step, threshold=HIPS_TF["threshold"],
+            learning_rate=HIPS_TF["lr"], momentum=HIPS_TF["momentum"],
+            device=dev)
+        rng = np.random.default_rng(1234 + w)
+        batches = [torch.as_tensor(synth_batch(rng, BATCH, MODEL["seq_len"],
+                                               MODEL["vocab"]), device=dev)
+                   for _ in range(HIPS_TF["batches"])]
+        with warm:          # no kv round inside: it would wait on the peer
+            tr.warmup(batches[0], None)
+        first = tr.step(batches[0], None)
+        bar.wait(JOIN_S)
+        if w == 0:
+            telemetry.enable(True)
+            wan[0] = telemetry.wan_bytes()
+            hostprof.reset()
+            hostprof.set_config(aggregate_stats=True)
+            hostprof.set_state("run")
+        bar.wait(JOIN_S)
+        timed = [tr.step_timed(batches[j % len(batches)], None)
+                 for j in range(R)]
+        bar.wait(JOIN_S)
+        if w == 0:
+            hostprof.set_state("stop")
+            wan[1] = telemetry.wan_bytes()
+            for name, us in hostprof.aggregate_stats().items():
+                name = "".join("N" if c.isdigit() else c for c in name)
+                spans[name] = spans.get(name, 0.0) + us / 1e3
+            hostprof.reset()
+        res[w] = dict(losses=[first] + [t[0] for t in timed],
+                      phases=[t[1] for t in timed], leaves=tr.leaves)
+
+    run_hips(worker, master, "phase4b-bsc", barriers=[bar])
+    wan_round = (wan[1] - wan[0]) / R
+    print(f"[phase4b-bsc] transformer of {sum(l.size for l in leaves0)} "
+          f"params, BSC threshold {HIPS_TF['threshold']} on the global "
+          f"tier: {wan_round:.1f} WAN "
+          f"bytes per round over {R} rounds ({100 * wan_round / dense['wan']:.2f}% "
+          f"of the dense rounds' {dense['wan']:.1f})", flush=True)
+    for w in (0, 1):
+        med = medians(res[w]["phases"])
+        wires = [round(p["wire_ms"], 3) for p in res[w]["phases"]]
+        print(f"[phase4b-bsc] worker {w} losses {res[w]['losses']}; "
+              f"step_timed medians (ms) {med}; wire per round {wires} "
+              f"(dense rounds' median {dense['wire_ms'][w]:.3f})", flush=True)
+    top = sorted(spans.items(), key=lambda kv: -kv[1])[:10]
+    print(f"[phase4b-bsc] host spans of the {R} rounds (thread-ms summed "
+          "over every role's threads, key and chunk numbers merged): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in top), flush=True)
+    for w in (0, 1):
+        if not all(math.isfinite(x) for x in res[w]["losses"]):
+            fail(f"phase4b-bsc: worker {w} non-finite loss "
+                 f"{res[w]['losses']}")
+    if not wan_round < dense["wan"] / 10:
+        fail(f"phase4b-bsc: {wan_round} WAN bytes per round, not under a "
+             f"tenth of the dense {dense['wan']}")
+    check_replicas(np, [res[0]["leaves"], res[1]["leaves"]], "phase4b-bsc")
+
+
+def phase5_baseline(torch, np, dev):
+    """``bench.py`` ``bench_nokv``'s accuracy probe: one trainer, no kv
+    store, batch 2 x FEATURE["batch"], Adam at lr 1e-3 (``torch.optim.Adam``
+    stands in for ``optax.adam``: a yardstick, not a port), ACC_ITERS
+    steps over the cached batches, then the test accuracy."""
+    from geomx_tpu_torch.examples.utils import build_model_and_step, eval_acc
+    from geomx_tpu_torch.io import load_data
+
+    B = 2 * FEATURE["batch"]
+    leaves, _names, grad_step, eval_step = build_model_and_step(B, device=dev)
+    params = [torch.tensor(l, device=dev) for l in leaves]
+    opt = torch.optim.Adam(params, lr=FEATURE["lr"])
+    train_iter, test_iter, _, _ = load_data(B, 1, 0)
+    batches = [(torch.as_tensor(X, device=dev), torch.as_tensor(y, device=dev))
+               for X, y in train_iter]
+    for it in range(FEATURE["acc_iters"]):
+        _loss, grads = grad_step(params, *batches[it % len(batches)])
+        for p, g in zip(params, grads):
+            p.grad = g
+        opt.step()
+    acc = eval_acc(test_iter, [p.cpu().numpy() for p in params], eval_step,
+                   device=dev)
+    print(f"[phase5] no-kvstore baseline: batch {B}, Adam lr {FEATURE['lr']}, "
+          f"{FEATURE['acc_iters']} steps: test accuracy {acc:.4f}", flush=True)
+    return acc
+
+
+def wan_payload(sizes, codec, threshold=0.0, bound=0):
+    """Bytes per round the WAN payloads take, from the key sizes and the
+    codec, headers excluded: (least, most). Two parties each push their
+    aggregate up and pull the global one back. BSC sends each key's
+    top max(int(n t), 1) (fp32 value + int32 index; the sampled boundary
+    may pick fewer) and pulls back the nonzeros of the sum of both
+    parties' selections (at most twice as many)."""
+    lo = hi = 0
+    for n in sizes:
+        if codec == "dense":
+            lo += 16 * n
+            hi += 16 * n
+        elif codec == "fp16" or (codec == "mpq" and n < bound):
+            lo += 8 * n
+            hi += 8 * n
+        else:                               # bsc, or mpq's big keys
+            k = max(int(n * threshold), 1)
+            lo += 2 * 8                     # one entry each way
+            hi += 2 * (8 * k + 8 * min(2 * k, n))
+    return lo, hi
+
+
+def wan_counts():
+    """(bytes, messages) the global tier's vans have sent so far."""
+    from geomx_tpu_torch import telemetry
+
+    msgs = sum(v for k, v in telemetry.snapshot()["counters"].items()
+               if k.startswith("van.messages_sent{") and "tier=global" in k)
+    return telemetry.wan_bytes(), msgs
+
+
+def run_feature(torch, np, mod, argv, tag, rounds, dev, topo_kw=None,
+                env=None):
+    """One feature config over a live two-party HiPS, driven through its
+    example's ``run_worker``: the master's part first (optimizer, codec,
+    init), then both party workers, each on its own data slice, for
+    ``rounds`` rounds. ``env`` holds the variables the example's
+    ``parse_args`` reads. Returns the workers' results and the WAN bytes
+    and messages per round from the end of round 1 to the end of the
+    last."""
+    from geomx_tpu_torch import telemetry
+
+    telemetry.enable(True)
+    bar = threading.Barrier(2)
+    wan, res = {}, {}
+    common = ["-bs", str(FEATURE["batch"]), "-ep", str(rounds),
+              "--max-iters", str(rounds)] + argv
+    with mock.patch.dict(os.environ, env or {}):
+        margs = mod.parse_args(common)
+        wargs = [mod.parse_args(common + ["-ds", str(w)]) for w in (0, 1)]
+
+    def master(kv):
+        mod.run_worker(kv, margs, dev)
+
+    def worker(kv, w):
+        def on_round(i):
+            if i == 1:              # both between rounds 1 and 2
+                bar.wait(JOIN_S)
+                if w == 0:
+                    wan[0] = wan_counts()
+                bar.wait(JOIN_S)
+
+        res[w] = mod.run_worker(kv, wargs[w], dev, on_round=on_round)
+        bar.wait(JOIN_S)
+        if w == 0:
+            wan[1] = wan_counts()
+
+    run_hips(worker, master, tag, barriers=[bar], topo_kw=topo_kw)
+    return res, [(b - a) / (rounds - 1) for a, b in zip(wan[0], wan[1])]
+
+
+def report_feature(np, tag, res, wan, payload, rounds, framing):
+    """Print a config's accuracies, rate, step times and WAN bytes and
+    messages per round (``wan``); fail on a non-finite loss or WAN bytes
+    outside the payload count plus ``framing`` bytes per message."""
+    wan_round, msgs = wan
+    steps = [res[w]["step_ms"][1:] for w in (0, 1)]   # round 1 warms up
+    img_s = 2 * FEATURE["batch"] * (rounds - 1) / max(sum(x) for x in steps) \
+        * 1e3
+    print(f"[{tag}] test accuracy after {rounds} rounds: worker 0 "
+          f"{res[0]['accs'][-1]:.4f}, worker 1 {res[1]['accs'][-1]:.4f}; "
+          f"peak of the last 10 {max(res[0]['accs'][-10:]):.4f} / "
+          f"{max(res[1]['accs'][-10:]):.4f}", flush=True)
+    for w in (0, 1):
+        x = steps[w]
+        print(f"[{tag}] worker {w} step ms (gradients, wire and update, "
+              f"eval excluded) median {statistics.median(x):.3f}, min "
+              f"{min(x):.3f}, max {max(x):.3f}; last losses "
+              f"{[round(l, 4) for l in res[w]['losses'][-3:]]}", flush=True)
+    print(f"[{tag}] {img_s:.1f} img/s (both workers, over the step times), "
+          f"{wan_round:.1f} WAN bytes in {msgs:.2f} messages per round "
+          f"(payload counted from the shapes {payload[0]}-{payload[1]})",
+          flush=True)
+    for w in (0, 1):
+        if not all(math.isfinite(l) for l in res[w]["losses"]):
+            fail(f"{tag}: worker {w} non-finite loss {res[w]['losses']}")
+        if not all(np.isfinite(l).all() for l in res[w]["leaves"]):
+            fail(f"{tag}: worker {w} non-finite parameters")
+    if not payload[0] <= wan_round <= payload[1] + msgs * framing:
+        fail(f"{tag}: {wan_round} WAN bytes per round, outside the "
+             f"payload count {payload} plus {framing:.1f} bytes of framing "
+             f"for each of {msgs:.2f} messages")
+
+
+def phase5(torch, np, dev="cuda"):
+    """The BASELINE.md feature configs over live HiPS, each through its
+    example's ``run_worker`` with LeNet at full width, 128 images per
+    worker per round: 5a the no-kvstore baseline and vanilla FSA (server
+    Adam), 5b HFA (K1 4, K2 2, local Adam), 5c fp16 (multi-precision,
+    bf16 compute), BSC, MPQ and MixedSync."""
+    from geomx_tpu_torch.examples import cnn, cnn_bsc, cnn_fp16, cnn_hfa, \
+        cnn_mpq
+
+    base = phase5_baseline(torch, np, dev)
+    acc_r, codec_r, thr = (FEATURE["acc_iters"], FEATURE["codec_rounds"],
+                           FEATURE["threshold"])
+    chance = FEATURE["chance"]
+    # HFA's last iteration syncs the global tier: the parties end equal
+    k1k2 = FEATURE["hfa_k1"] * FEATURE["hfa_k2"]
+    hfa_r = acc_r // k1k2 * k1k2
+    mpq_env = {"MXNET_KVSTORE_SIZE_LOWER_BOUND": str(FEATURE["mpq_bound"])}
+    # (tag, example, flags, rounds, topology, env, codec, threshold,
+    #  accuracy gate: (accuracy read, floor) or None, replicas
+    #  bit-identical). BSC at 0.01 carries no accuracy gate: the
+    #  example's recipe is chaotic there and may fall back to chance in
+    #  either package (PERF.md, slice 6); the gate runs at 0.2, the
+    #  threshold of tests/test_launch_integration.py's calibration
+    #  (:104), on the peak of the last 10 rounds as that test reads it.
+    configs = [
+        ("phase5a fsa", cnn, [], acc_r, None, None, "dense", 0,
+         ("final", base - PARITY_TOL_FSA), True),
+        ("phase5b hfa", cnn_hfa, [], hfa_r,
+         {"use_hfa": True, "hfa_k2": FEATURE["hfa_k2"]},
+         {"MXNET_KVSTORE_HFA_K1": str(FEATURE["hfa_k1"])}, "dense", 0,
+         ("final", base - PARITY_TOL_HFA), True),
+        ("phase5c fp16", cnn_fp16, [], codec_r, None, None, "fp16", 0,
+         ("peak10", chance), True),
+        ("phase5c bsc", cnn_bsc, ["-cr", str(thr)], codec_r, None, None,
+         "bsc", thr, None, True),
+        ("phase5c bsc-0.2", cnn_bsc, ["-cr", "0.2"], codec_r, None, None,
+         "bsc", 0.2, ("peak10", chance), True),
+        ("phase5c mpq", cnn_mpq, ["-cr", str(thr)], codec_r, None, mpq_env,
+         "mpq", thr, ("peak10", chance), True),
+        ("phase5c mixedsync", cnn, ["-ms"], codec_r,
+         {"sync_global": False}, None, "dense", 0, ("peak10", chance),
+         False),
+    ]
+    framing = None
+    for (tag, mod, flags, rounds, topo_kw, env, codec, cr, gate,
+         lockstep) in configs:
+        res, wan = run_feature(torch, np, mod, flags, tag, rounds, dev,
+                               topo_kw, env)
+        sizes = [l.size for l in res[0]["leaves"]]
+        lo, hi = wan_payload(sizes, codec, cr, FEATURE["mpq_bound"])
+        if tag.endswith("hfa"):
+            # the global tier every K1 * K2 iterations: the syncs inside
+            # the counted window, spread over its iterations
+            syncs = rounds // k1k2
+            lo, hi = lo * syncs / (rounds - 1), hi * syncs / (rounds - 1)
+        if framing is None:
+            # FSA's dense payload is exact: the rest of its WAN bytes is
+            # framing (keys, lengths, meta). The other configs may frame
+            # a message with up to twice as much (codec tags, BSC's
+            # indices beside its values).
+            framing = (wan[0] - lo) / wan[1]
+            print(f"[{tag}] {framing:.1f} bytes of framing per WAN message "
+                  "over the dense payload", flush=True)
+            if framing < 0:
+                fail(f"{tag}: {wan[0]} WAN bytes per round, under the dense "
+                     f"payload {lo}")
+        report_feature(np, tag, res, wan, (lo, hi), rounds, 2 * framing)
+        accs = [res[w]["accs"][-1] if gate is None or gate[0] == "final"
+                else max(res[w]["accs"][-10:]) for w in (0, 1)]
+        if gate is not None and min(accs) < gate[1]:
+            fail(f"{tag}: accuracy ({gate[0]}) {accs} below {gate[1]:.4f}")
+        if lockstep:
+            check_replicas(np, [res[0]["leaves"], res[1]["leaves"]], tag)
 
 
 def main():
@@ -1117,8 +1452,12 @@ def main():
     lap("phase3")
     phase4a(torch, np, fa, tb)
     lap("phase4a")
-    hips_launches = phase4b(torch, np, fa, tb)
+    hips_launches, dense = phase4b(torch, np, fa, tb)
     lap("phase4b")
+    phase4b_bsc(torch, np, dense)
+    lap("phase4b-bsc")
+    phase5(torch, np)
+    lap("phase5")
 
     table = [{
         "name": name, "route": "cuda", "source": SOURCE, "replaces": where,

@@ -12,7 +12,9 @@ with the 2-bit quantize as a CUDA kernel (``ops``), and the intra-party
 tier's quantized ring all-reduce and ``DataParallelTrainer``
 (``parallel``) (slice 2); the HiPS tiers (``ps``, the ``dist*`` stores,
 ``simulate.InProcessHiPS``), the trainer's pipelined round, LeNet and its
-data (slice 5). Unlike ``import geomx_tpu``, importing this package never
+data (slice 5); the server-side optimizers (``optimizer``,
+``lr_scheduler``) and the BASELINE.md feature configs as examples
+(slice 6). Unlike ``import geomx_tpu``, importing this package never
 enters the server loop: infrastructure roles run
 ``python -m geomx_tpu_torch.kvstore_server``.
 """
@@ -21,6 +23,8 @@ __version__ = "0.1.0"
 
 from geomx_tpu_torch import kvstore as kv  # noqa: F401  (mirrors mx.kv)
 from geomx_tpu_torch import compression  # noqa: F401
+from geomx_tpu_torch import lr_scheduler  # noqa: F401
+from geomx_tpu_torch import optimizer  # noqa: F401
 from geomx_tpu_torch import models  # noqa: F401
 from geomx_tpu_torch import ops  # noqa: F401
 from geomx_tpu_torch.kvstore import create  # noqa: F401

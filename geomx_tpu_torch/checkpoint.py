@@ -1,10 +1,10 @@
 """Checkpoint / resume in a framework-neutral format.
 
 Counterpart of ``geomx_tpu/checkpoint.py`` with the same surface
-(``save_checkpoint`` / ``load_checkpoint`` / ``latest_checkpoint`` and
-the ``serialize_states`` / ``serialize_blob`` codecs of server state
-snapshots; the optimizer-state dump waits for ``optimizer/``), written
-atomically (tmp + rename) so
+(``save_checkpoint`` / ``load_checkpoint`` / ``latest_checkpoint``, the
+``serialize_states`` / ``serialize_blob`` codecs of server state
+snapshots and the ``save_optimizer_states`` / ``load_optimizer_states``
+dump), written atomically (tmp + rename) so
 a crash mid-write can't corrupt the latest checkpoint. Naming follows the
 reference: ``{prefix}-{epoch:04d}.ckpt``.
 
@@ -28,6 +28,7 @@ import json
 import os
 import re
 import struct
+import threading
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -36,6 +37,7 @@ __all__ = [
     "save_checkpoint", "load_checkpoint", "latest_checkpoint",
     "serialize_states", "deserialize_states",
     "serialize_blob", "deserialize_blob",
+    "save_optimizer_states", "load_optimizer_states",
 ]
 
 _MAGIC = b"GXCK1\n"
@@ -46,7 +48,9 @@ def _ckpt_path(prefix: str, epoch: int) -> str:
 
 
 def _atomic_write(path: str, data: bytes) -> None:
-    tmp = f"{path}.{os.getpid()}.tmp"
+    # per process and thread: two workers of one process (InProcessHiPS)
+    # may write the same checkpoint at once
+    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
     d = os.path.dirname(os.path.abspath(path))
     os.makedirs(d, exist_ok=True)
     try:
@@ -190,3 +194,15 @@ def serialize_blob(doc: Dict) -> bytes:
 
 def deserialize_blob(data: bytes) -> Dict:
     return _loads(data)
+
+
+def save_optimizer_states(fname: str, optimizer) -> None:
+    """Dump an optimizer's states to file (reference: kvstore.py:566),
+    keyed by kv key (int) or (key, offset) shard."""
+    _atomic_write(fname, serialize_states(optimizer.get_states()))
+
+
+def load_optimizer_states(fname: str, optimizer) -> None:
+    """Restore an optimizer's states from file (reference: kvstore.py:582)."""
+    with open(fname, "rb") as f:
+        optimizer.set_states(deserialize_states(f.read()))

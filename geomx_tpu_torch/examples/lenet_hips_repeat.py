@@ -17,14 +17,27 @@ runs that should be identical can be compared.
 PyTorch's defaults after the build (TF32, any algorithm) and ``--cudnn
 fp32`` allows any algorithm without TF32, to measure what each does.
 ``--cpu`` runs on the CPU.
+
+``--example <name>`` repeats a feature config's loop instead: the
+example's own ``run_worker`` (``cnn``, ``cnn_fp16``, ``cnn_bsc``,
+``cnn_mpq``, ``cnn_hfa``) on every node of the topology, the master's
+part first, from LeNet's init at each seed, with the example's flags
+after ``--``; per run it prints the first worker's accuracy every 20
+rounds and the peak of the last 20:
+
+  python -m geomx_tpu_torch.examples.lenet_hips_repeat --example cnn_bsc \
+      --seeds 42 0 1 2 --rounds 200 --cpu -- -bs 128 -cr 0.01
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import hashlib
+import importlib
 import threading
 import time
+from unittest import mock
 
 
 def run_once(seed: int, rounds: int, device, cudnn: str = "exact",
@@ -77,6 +90,44 @@ def run_once(seed: int, rounds: int, device, cudnn: str = "exact",
     return [res[0][0], res[1][0]], [res[0][1], res[1][1]]
 
 
+def run_example(name: str, flags, seed: int, rounds: int, device,
+                workers_per_party: int = 1):
+    """The example's loop over a live two-party ``InProcessHiPS`` for
+    ``rounds`` rounds from LeNet's init at ``seed``; returns each party
+    worker's accuracies (one per evaluation)."""
+    from geomx_tpu_torch.examples import utils
+    from geomx_tpu_torch.simulate import InProcessHiPS
+
+    mod = importlib.import_module(f"geomx_tpu_torch.examples.{name}")
+    topo_kw = {"use_hfa": True} if name == "cnn_hfa" else {}
+    topo = InProcessHiPS(num_parties=2, workers_per_party=workers_per_party,
+                         **topo_kw).start()
+    common = ["-ep", str(rounds), "--max-iters", str(rounds)] + list(flags)
+    master_done = threading.Event()
+    res = {}
+
+    def master(kv):
+        try:
+            mod.run_worker(kv, mod.parse_args(common), device)
+        finally:
+            master_done.set()
+
+    def worker(kv):
+        if not master_done.wait(600):
+            raise TimeoutError("the master did not finish its set-up")
+        w = topo.workers.index(kv)
+        res[w] = mod.run_worker(kv, mod.parse_args(common + ["-ds", str(w)]),
+                                device)["accs"]
+
+    build = functools.partial(utils.build_model_and_step, seed=seed)
+    try:
+        with mock.patch.object(utils, "build_model_and_step", build):
+            topo.run_workers(worker, include_master=master, timeout=3600)
+    finally:
+        topo.stop()
+    return [res[w] for w in sorted(res)]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--seeds", type=int, nargs="+", default=[42],
@@ -86,11 +137,30 @@ def main(argv=None):
     ap.add_argument("--cudnn", choices=("exact", "default", "fp32"),
                     default="exact")
     ap.add_argument("-c", "--cpu", action="store_true")
+    ap.add_argument("--example", default=None,
+                    help="repeat this feature config's loop instead")
+    ap.add_argument("--workers-per-party", type=int, default=1)
+    ap.add_argument("flags", nargs="*",
+                    help="the example's own flags, after --")
     args = ap.parse_args(argv)
 
     from geomx_tpu_torch._device import resolve_device
 
     device = resolve_device("cpu" if args.cpu else None)
+    if args.example is not None:
+        for seed in args.seeds:
+            for r in range(args.runs):
+                t = time.perf_counter()
+                accs = run_example(args.example, args.flags, seed,
+                                   args.rounds, device,
+                                   args.workers_per_party)[0]
+                print(f"{args.example} {' '.join(args.flags)} parties 2 x "
+                      f"{args.workers_per_party} seed {seed} run {r} device "
+                      f"{device.type}: accuracy every 20 rounds "
+                      f"{[round(a, 4) for a in accs[19::20]]}, peak of the "
+                      f"last 20 {max(accs[-20:]):.4f}, "
+                      f"{time.perf_counter() - t:.1f} s", flush=True)
+        return
     for seed in args.seeds:
         for r in range(args.runs):
             t = time.perf_counter()

@@ -1,14 +1,21 @@
 """Shared example harness for the port's demo CNN.
 
-Counterpart of ``examples/utils.py`` (``build_model_and_step`` for
-``model="cnn"`` and ``eval_acc``): a grad step and an eval step over the
-flax leaf list, so the device-resident trainer pushes the same keys and
-arrays as the JAX package's. The model zoo (``model != "cnn"``) is not
-ported yet (ROADMAP queue A item 11).
+Counterpart of ``examples/utils.py``: ``build_model_and_step`` for
+``model="cnn"`` (a grad step and an eval step over the flax leaf list,
+so the port's workers push the same keys and arrays as the JAX
+package's), ``host_grad_step`` (one packed transfer each way per
+round, the counterpart of ``build_flat_step``), ``eval_acc`` and the
+``Measure`` JSON reporter. The model zoo (``model != "cnn"``) is not
+ported yet (ROADMAP queue A item 11), nor is ``build_mesh_ring_step``
+(item 9).
 """
 
 from __future__ import annotations
 
+import json
+import os
+import tempfile
+import time
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -17,7 +24,8 @@ import torch
 from geomx_tpu_torch.io import load_data  # noqa: F401  (re-export)
 
 
-def build_model_and_step(batch_size: int, num_classes: int = 10,
+def build_model_and_step(batch_size: int, compute_dtype=torch.float32,
+                         num_classes: int = 10,
                          input_shape=(28, 28, 1), model: str = "cnn",
                          device=None,
                          init_leaves: Optional[Sequence] = None,
@@ -28,11 +36,14 @@ def build_model_and_step(batch_size: int, num_classes: int = 10,
     from ``init_leaves`` (e.g. the JAX package's) or a seeded flax-style
     init. ``grad_step(leaves, X, y) -> (loss, grad_leaves)`` takes leaf
     tensors on ``device`` and returns mean-loss gradients in the same
-    order and layouts; ``eval_step(leaves, X, y)`` returns the accuracy.
-    ``device=None`` is the CUDA card; ``batch_size`` is accepted for the
-    JAX signature's sake. On the card this sets cuDNN to fp32 and
-    deterministic algorithms for the whole process
-    (:func:`geomx_tpu_torch._device.exact_cudnn`)."""
+    order, layouts and dtype; ``eval_step(leaves, X, y)`` returns the
+    accuracy. ``compute_dtype`` (``torch.bfloat16`` for
+    ``examples/cnn_fp16.py``) is what the forward and backward run in:
+    the leaves and inputs are cast to it, no autocast, and the logits and
+    the loss stay fp32, as in the flax step. ``device=None`` is the CUDA
+    card; ``batch_size`` is accepted for the JAX signature's sake. On the
+    card this sets cuDNN to fp32 and deterministic algorithms for the
+    whole process (:func:`geomx_tpu_torch._device.exact_cudnn`)."""
     del batch_size
     if model != "cnn":
         raise NotImplementedError(
@@ -56,7 +67,9 @@ def build_model_and_step(batch_size: int, num_classes: int = 10,
     call = thread_safe_call(net.to(dev))
 
     def logits_of(leaf_list, X):
-        return call(lenet_params_from_flax(leaf_list), torch.as_tensor(X))
+        params = lenet_params_from_flax(
+            [p.to(compute_dtype) for p in leaf_list])
+        return call(params, torch.as_tensor(X))
 
     def grad_step(leaf_list, X, y):
         leaf_list = [p.detach().requires_grad_(True) for p in leaf_list]
@@ -73,6 +86,46 @@ def build_model_and_step(batch_size: int, num_classes: int = 10,
     return leaves, [f for f, _n, _k in LENET_LEAVES], grad_step, eval_step
 
 
+def host_grad_step(leaves: List[np.ndarray], grad_step, device):
+    """``(leaves, X, y) -> (loss, grad_leaves)`` over numpy leaves and
+    batches, with the per-leaf transfers fused (counterpart of
+    ``examples/utils.py`` ``build_flat_step``): one host-to-device copy
+    of the packed parameters and of the batch, split and reshaped on
+    ``device``, and one device-to-host copy of the packed gradients. The
+    leaves must share one dtype; the loss stays a tensor on ``device``."""
+    shapes = [l.shape for l in leaves]
+    sizes = [int(l.size) for l in leaves]
+    bounds = list(np.cumsum(sizes)[:-1])
+    dtypes = {np.asarray(l).dtype for l in leaves}
+    if len(dtypes) != 1:
+        raise ValueError(f"leaves must share one dtype, got {dtypes}")
+    dtype = dtypes.pop()
+
+    def step(lv, X, y):
+        flat = torch.from_numpy(np.concatenate(
+            [np.asarray(l, dtype).ravel() for l in lv])).to(device)
+        loss, grads = grad_step(
+            [p.view(s) for p, s in zip(torch.split(flat, sizes), shapes)],
+            torch.as_tensor(X).to(device), torch.as_tensor(y).to(device))
+        flat_grads = torch.cat([g.reshape(-1) for g in grads]).cpu().numpy()
+        return loss, [g.reshape(s) for g, s in
+                      zip(np.split(flat_grads, bounds), shapes)]
+
+    return step
+
+
+def init_and_pull(kv, leaves: List[np.ndarray]) -> None:
+    """Every node inits every key; party workers then pull the global
+    initial values into ``leaves`` (the master steps aside), as the
+    reference examples do."""
+    for idx, leaf in enumerate(leaves):
+        kv.init(idx, leaf)
+        if kv.is_master_worker:
+            continue
+        kv.pull(idx, out=leaves[idx])
+    kv.wait()
+
+
 def eval_acc(test_iter, leaves: List[np.ndarray], eval_step,
              device=None) -> float:
     """Mean accuracy of ``leaves`` over ``test_iter`` on ``device``."""
@@ -84,3 +137,36 @@ def eval_acc(test_iter, leaves: List[np.ndarray], eval_step,
                             torch.as_tensor(y).to(dev)))
             for X, y in test_iter]
     return float(np.mean(accs)) if accs else 0.0
+
+
+class Measure:
+    """Per-iteration JSON metrics reporter (reference: utils.py:120), the
+    same records as the JAX package's. Its files go under the system's
+    temporary directory (``TMPDIR``) unless ``log_dir`` says otherwise."""
+
+    def __init__(self, log_dir: Optional[str] = None, sub_dir: str = "run"):
+        self.begin = time.time()
+        self.records = []
+        self.log_path = os.path.join(
+            log_dir or os.path.join(tempfile.gettempdir(), "geomx_logs"),
+            sub_dir)
+        os.makedirs(self.log_path, exist_ok=True)
+
+    def add(self, iteration: int, epoch: int, accuracy: float,
+            num_samples: int, loss: float = 0.0):
+        rec = {
+            "iteration": iteration,
+            "epoch": epoch,
+            "time": round(time.time() - self.begin, 4),
+            "accuracy": round(accuracy, 4),
+            "num_samples": num_samples,
+            "loss": round(float(loss), 5),
+        }
+        self.records.append(rec)
+        return rec
+
+    def dump(self, name: str = "measure.json"):
+        path = os.path.join(self.log_path, name)
+        with open(path, "w") as f:
+            json.dump(self.records, f)
+        return path

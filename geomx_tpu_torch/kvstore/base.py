@@ -17,6 +17,8 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
+from geomx_tpu_torch import checkpoint
+
 
 # Server command channel (reference: src/kvstore/kvstore_dist_server.h:46-52).
 class Command:
@@ -134,14 +136,22 @@ class KVStore:
     # -- optimizer state persistence -------------------------------------
 
     def save_optimizer_states(self, fname: str) -> None:
-        raise NotImplementedError(
-            "optimizer-state checkpoints need geomx_tpu_torch.optimizer, "
-            "which is not ported yet (ROADMAP queue A item 4)")
+        """Dump the updater's states (reference: kvstore.py:566). This base
+        implementation serves stores whose updater runs in-process
+        (KVStoreLocal); KVStoreDist overrides it with a server round-trip
+        because the live states sit on the aggregation server."""
+        checkpoint.save_optimizer_states(fname, self._local_optimizer())
 
     def load_optimizer_states(self, fname: str) -> None:
-        raise NotImplementedError(
-            "optimizer-state checkpoints need geomx_tpu_torch.optimizer, "
-            "which is not ported yet (ROADMAP queue A item 4)")
+        checkpoint.load_optimizer_states(fname, self._local_optimizer())
+
+    def _local_optimizer(self):
+        opt = getattr(self, "_optimizer", None)
+        if opt is None:
+            raise RuntimeError("no optimizer set on this node; optimizer "
+                               "states are saved and loaded where "
+                               "set_optimizer was called")
+        return opt
 
     def barrier(self, is_global: bool = False) -> None:
         pass

@@ -61,3 +61,4 @@ class KVStoreLocal(KVStore):
 
     def set_optimizer(self, optimizer) -> None:
         self._updater = optimizer
+        self._optimizer = optimizer  # for save/load_optimizer_states

@@ -61,6 +61,8 @@ import numpy as np
 from geomx_tpu_torch import checkpoint  # module-level: used in handler threads
 from geomx_tpu_torch import config as cfg_mod
 from geomx_tpu_torch import kernels_native
+from geomx_tpu_torch import lr_scheduler
+from geomx_tpu_torch import optimizer
 from geomx_tpu_torch import profiler
 from geomx_tpu_torch import telemetry
 from geomx_tpu_torch.compression import make_compressor
@@ -80,6 +82,12 @@ log = logging.getLogger("geomx.server")
 Action = Callable[[], None]
 
 
+# a JAX-package class the port has a twin of: the same name, the same
+# plain attributes and the same numpy state
+_TWINS = {"geomx_tpu.optimizer": optimizer,
+          "geomx_tpu.lr_scheduler": lr_scheduler}
+
+
 class _SysModulesUnpickler(pickle.Unpickler):
     """Unpickler that never triggers ``__import__`` for loaded modules.
 
@@ -88,9 +96,23 @@ class _SysModulesUnpickler(pickle.Unpickler):
     would wait on the parent package's import lock. The port's server
     loop runs from ``python -m geomx_tpu_torch.kvstore_server`` and has no
     such lock; resolving from sys.modules is still what both servers do.
+
+    A JAX-package master ships ``geomx_tpu.optimizer.<Cls>`` (with a
+    ``geomx_tpu.lr_scheduler.<Cls>`` inside): those resolve to the port's
+    class of the same name, so a port server never imports the JAX
+    package (and with it jax and flax). Any other class of the JAX
+    package is refused.
     """
 
     def find_class(self, module, name):
+        if module.split(".")[0] == "geomx_tpu":
+            twin = _TWINS.get(module)
+            if twin is None or name not in twin.__all__:
+                raise pickle.UnpicklingError(
+                    f"{module}.{name}: a class of the JAX package with no "
+                    "counterpart in geomx_tpu_torch; a port server takes "
+                    "only optimizers and lr schedulers from it")
+            return getattr(twin, name)
         mod = sys.modules.get(module)
         if mod is not None:
             return getattr(mod, name)

@@ -7,6 +7,10 @@ Conv(32,5x5)+relu -> maxpool(2,2) -> Dense(256)+relu -> Dense(128)+relu
 NCHW (cuDNN's layout), and the features are flattened in NHWC order so
 ``Dense_0`` sees its inputs in the JAX package's order.
 
+With bf16 parameters (``build_model_and_step(compute_dtype=...)``)
+the whole forward runs in bf16, as the JAX module's ``compute_dtype``
+does, and the logits are cast back to fp32.
+
 Parameters are torch-native (OIHW conv weights, ``[out, in]`` linear
 weights); :mod:`geomx_tpu_torch.models.convert` maps them to and from
 the flax leaf list (HWIO conv kernels, ``[in, out]`` dense kernels,
@@ -51,15 +55,16 @@ class LeNetCNN(nn.Module):
             nn.init.zeros_(m.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # x: [N, H, W, C] -> NCHW for the convolutions
-        x = x.to(torch.float32).permute(0, 3, 1, 2)
+        # x: [N, H, W, C] -> NCHW for the convolutions, in the parameters'
+        # dtype (the compute dtype; the logits come out fp32 either way)
+        x = x.to(self.conv0.weight.dtype).permute(0, 3, 1, 2)
         x = F.max_pool2d(F.relu(self.conv0(x)), 2, 2)
         x = F.max_pool2d(F.relu(self.conv1(x)), 2, 2)
         # flatten in NHWC order, as the JAX module does
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
         x = F.relu(self.dense0(x))
         x = F.relu(self.dense1(x))
-        return self.dense2(x)
+        return self.dense2(x).float()
 
 
 def create_cnn(num_classes: int = 10, in_channels: int = 1,

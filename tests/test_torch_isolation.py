@@ -37,6 +37,13 @@ def test_import_leaves_jax_out_of_the_process():
         "import geomx_tpu_torch.parallel\n"
         "import geomx_tpu_torch.parallel.quant_collectives\n"
         "import geomx_tpu_torch.parallel.train_step\n"
+        "import geomx_tpu_torch.optimizer\n"
+        "import geomx_tpu_torch.lr_scheduler\n"
+        "import geomx_tpu_torch.examples.cnn\n"
+        "import geomx_tpu_torch.examples.cnn_fp16\n"
+        "import geomx_tpu_torch.examples.cnn_bsc\n"
+        "import geomx_tpu_torch.examples.cnn_mpq\n"
+        "import geomx_tpu_torch.examples.cnn_hfa\n"
         f"print(sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r}))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
@@ -80,6 +87,18 @@ def test_example_without_cpu_flag_raises(no_cuda):
         example.main(["--local", "--max-iters", "1", "--dim", "8",
                       "--depth", "1", "--heads", "1", "--vocab", "8",
                       "--seq-len", "4"])
+
+
+@pytest.mark.parametrize("name", ["cnn", "cnn_fp16", "cnn_bsc", "cnn_mpq",
+                                  "cnn_hfa"])
+def test_feature_config_without_cpu_flag_raises(name, no_cuda):
+    """The BASELINE.md feature configs resolve the card before they
+    create a store: without one, and without ``--cpu``, they raise."""
+    import importlib
+
+    mod = importlib.import_module(f"geomx_tpu_torch.examples.{name}")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main(["--max-iters", "1"])
 
 
 def test_example_runs_on_the_cpu_when_asked(capsys):
@@ -128,5 +147,6 @@ def test_local_store_matches_the_jax_package():
         np.testing.assert_array_equal(x, y)
     with pytest.raises(ValueError, match="duplicate"):
         gx.kv.create("device").init([1, 1], [a, a])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # optimizer states are saved where the optimizer was set
+    with pytest.raises(RuntimeError, match="no optimizer"):
         gx.kv.create("local").save_optimizer_states("x")
