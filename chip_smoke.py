@@ -64,6 +64,21 @@ payload counted from the shapes, and fails on a non-finite loss, WAN
 bytes outside that count, or replicas that differ where the global tier
 is synchronous.
 
+Phase 6 is the mesh-party tier (``InProcessHiPS(party_mesh_size=2)``:
+each party ONE ``KVStorePartyMesh`` whose 2 ranks share the card, so the
+van sees one worker per party, both parties' meshes on the one card).
+6a is ``bench.py`` ``bench_hips_mesh``: the main path's LeNet recipe
+(BSC 0.02, lr 0.05, 200 rounds) with a party batch of 2 x 128, run with
+``GEOMX_MESH_CODEC`` none and 2bit (settings scoped to the run): the
+intra-party protocol probe beside phase 4a's wire, accuracies against
+their floors, img/s, WAN and mesh bytes per round (2bit at least 14x
+below none), the two_bit kernel's launches, the parties bit for bit. 6b
+is the 59M transformer as 2 parties x 2 ranks, 8 sequences per rank,
+through the 2-bit ring and BSC 0.01: 1 warm-up round, 4 counted
+``step_timed`` rounds and a profiled one; launches of every kernel per
+round, WAN and mesh bytes, the device's busy share, round 1's loss
+against plain attention, the parties bit for bit.
+
 Exits non-zero without a card, outside a checkout, or when any check
 fails. The line before the last is the kernel table as JSON; the last is
 ``{"ok": true, "device": {...}}``.
@@ -125,6 +140,16 @@ FEATURE = dict(batch=128, acc_iters=100, codec_rounds=40, lr=1e-3,
                hfa_k1=4, hfa_k2=2, threshold=0.01, mpq_bound=20000,
                chance=0.2)
 PARITY_TOL_FSA = PARITY_TOL_HFA = 0.02
+# phase 6: the mesh-party tier (bench.py bench_hips_mesh :491, party
+# batch ranks x 128; the transformer at 8 sequences per rank). Accuracy
+# floors (PERF.md, slice 7): "none" at the JAX package's own CPU reading
+# of bench_hips_mesh (0.0967: the recipe's 200 rounds end on its plateau
+# there, as the port's CPU rehearsal does at one torch thread) less
+# 0.02, since it and the port's rehearsal both fall below phase 4a's
+# 0.98; "2bit" (threshold 2e-4) at its CPU rehearsal's 0.4531 less 0.05
+MESH6 = dict(ranks=2, probe_reps=30, thr_rounds=20, tf_rounds=4,
+             lenet_2bit_threshold=2e-4, acc_none=0.0967 - 0.02,
+             acc_2bit=0.4531 - 0.05, round1_tol=1e-4)
 JOIN_S = 900                # per topology: a hung worker fails the phase
 
 
@@ -571,7 +596,7 @@ def phase3b(torch, np, qc, pmesh):
     """bench.py's bench_mesh_quant on the card: a 2-rank party, 2^20
     elements, every codec; the card's ring against its CPU replay."""
     n, reps = 1 << 20, 30
-    card, host = (pmesh.make_party_mesh(2, d) for d in ("cuda", "cpu"))
+    card, host = (pmesh.make_party_mesh(2, device=d) for d in ("cuda", "cpu"))
     g_stack = torch.as_tensor(
         np.random.RandomState(0).randn(2, n).astype(np.float32),
         device="cuda")
@@ -617,8 +642,8 @@ def mesh_quant_parity(torch, np, qc, pmesh, codec, rounds=200, d=512,
     """bench.py's _mesh_quant_parity through the ring on the card: 4-rank
     linear regression, the ranks' local-shard gradients reduced (mean),
     SGD on the replicated output; returns the final mean squared error."""
-    red = qc.QuantRingReducer(pmesh.make_party_mesh(ranks, "cuda"), codec, d,
-                              mean=True, threshold=0.01)
+    red = qc.QuantRingReducer(pmesh.make_party_mesh(ranks, device="cuda"),
+                              codec, d, mean=True, threshold=0.01)
     w_true = (np.random.RandomState(7).randn(d)
               / np.sqrt(d)).astype(np.float32)
     rng = np.random.RandomState(42)
@@ -660,7 +685,7 @@ def phase3d(torch, np, fa, tb, qc, pmesh):
     from geomx_tpu_torch.parallel.train_step import DataParallelTrainer
 
     t = time.perf_counter()
-    mesh = pmesh.make_party_mesh(PARTY, "cuda")
+    mesh = pmesh.make_party_mesh(PARTY, device="cuda")
     model = Transformer(vocab=MODEL["vocab"], dim=MODEL["dim"],
                         depth=MODEL["depth"], heads=MODEL["heads"],
                         max_len=MODEL["seq_len"],
@@ -741,8 +766,9 @@ def phase3d(torch, np, fa, tb, qc, pmesh):
 
     stack, out, same_rows = first
     share = float((out[0] != 0).to(torch.float64).mean())
-    replay = qc.QuantRingReducer(pmesh.make_party_mesh(PARTY, "cpu"), "2bit",
-                                 n, mean=True, threshold=PARTY_THRESHOLD)
+    replay = qc.QuantRingReducer(pmesh.make_party_mesh(PARTY, device="cpu"),
+                                 "2bit", n, mean=True,
+                                 threshold=PARTY_THRESHOLD)
     if not same_rows:
         fail("step 1: the ranks' rows of the ring output differ")
     if not torch.equal(replay.reduce(stack), out):
@@ -939,7 +965,8 @@ def phase4a(torch, np, fa, tb):
         fail("phase4a: the HiPS store did not take the pipelined round")
     check_replicas(np, [res[0]["leaves"], res[1]["leaves"]], "phase4a")
     return {"img_s": img_s, "wan_bytes_per_round": wan_round,
-            "acc": [res[0]["acc"], res[1]["acc"]]}
+            "acc": [res[0]["acc"], res[1]["acc"]],
+            "wire_ms": [medians(res[w]["timed"])["wire_ms"] for w in (0, 1)]}
 
 
 def phase4b(torch, np, fa, tb):
@@ -1387,6 +1414,379 @@ def phase5(torch, np, dev="cuda"):
             check_replicas(np, [res[0]["leaves"], res[1]["leaves"]], tag)
 
 
+def mesh_settings(codec, threshold):
+    """The mesh-party tier's settings as a user sets them, scoped to a
+    ``with`` block (restored afterwards), and the Config keys
+    ``InProcessHiPS`` takes from them."""
+    from geomx_tpu_torch import config as cfg_mod
+
+    env = {"GEOMX_PARTY_MESH": "1",
+           "GEOMX_PARTY_MESH_SIZE": str(MESH6["ranks"]),
+           "GEOMX_MESH_CODEC": codec,
+           "GEOMX_WIRE_2BIT_THRESHOLD": repr(threshold)}
+    scope = mock.patch.dict(os.environ, env)
+    with scope:
+        cfg = cfg_mod.load()
+    return scope, {"mesh_codec": cfg.mesh_codec,
+                   "wire_2bit_threshold": cfg.wire_2bit_threshold}
+
+
+def intra_party_ms(torch, n, dev):
+    """``bench.py`` ``bench_hips_mesh``'s intra-party protocol probe: the
+    party mean of a (ranks, n) fp32 stack on the device, median of
+    MESH6["probe_reps"] fenced calls (the collective a party of one card
+    runs in place of the LAN PS round)."""
+    g = torch.randn(MESH6["ranks"], n, generator=torch.Generator()
+                    .manual_seed(0)).to(dev)
+    g.mean(0)
+    samples = []
+    for _ in range(MESH6["probe_reps"]):
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g.mean(0)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(samples)
+
+
+def mesh_round1_replay(torch, np, grad_step, leaves0, party_batches, codec,
+                       dev):
+    """Round 1 of the mesh-party BSC round (momentum 0) in plain torch,
+    from the initial leaves and each party's first batch: the party
+    gradient (the whole party batch's mean for codec "none"; else each
+    rank's contiguous shard through the quantized ring, replayed on the
+    CPU, over P), scaled by 1/parties, every leaf's top int(size x
+    threshold) coordinates kept, summed over the parties as the global
+    tier sums them, one SGD step. Shares only the model's ``grad_step``
+    and the ring's CPU route with the code under test."""
+    from geomx_tpu_torch import config as cfg_mod
+    from geomx_tpu_torch.parallel import quant_collectives as qc
+
+    cfg = cfg_mod.load()
+    P, nparties = MESH6["ranks"], len(party_batches)
+    sizes = [int(l.size) for l in leaves0]
+    flat0 = torch.from_numpy(np.concatenate(
+        [l.ravel() for l in leaves0]).astype(np.float32)).to(dev)
+    agg = torch.zeros_like(flat0)
+
+    def grad(X, y):
+        lv = [torch.from_numpy(np.array(l, np.float32)).to(dev)
+              for l in leaves0]
+        _loss, grads = grad_step(lv, X, y)
+        return torch.cat([g.reshape(-1).float() for g in grads])
+
+    for X, y in party_batches:
+        if codec == "none":
+            g = grad(X, y)
+        else:
+            rows = X.shape[0] // P
+            stack = torch.stack([grad(X[r * rows:(r + 1) * rows],
+                                      y[r * rows:(r + 1) * rows])
+                                 for r in range(P)]).cpu()
+            out, _res = qc.ring_all_reduce(
+                stack, qc.zero_residual(P, stack.shape[1], codec,
+                                        cfg.mesh_block, device="cpu"),
+                size=P, codec=codec, block=cfg.mesh_block,
+                threshold=cfg.wire_2bit_threshold)
+            g = out[0].to(dev) / P
+        u = g / nparties
+        off = 0
+        for sz in sizes:
+            seg = u[off:off + sz]
+            idx = torch.topk(seg.abs(), max(int(sz * LENET["threshold"]),
+                                            1))[1] + off
+            agg.index_add_(0, idx, u[idx])
+            off += sz
+    return flat0 - LENET["lr"] * agg
+
+
+def disp_err(np, got, want, init):
+    """||got - want|| / ||want - init||: an error against the size of
+    the displacement from ``init`` (flat float64)."""
+    got, want, init = (np.asarray(a, np.float64) for a in (got, want, init))
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want - init))
+
+
+def mesh_lenet(torch, np, fa, tb, codec, dev="cuda"):
+    """One run of ``bench_hips_mesh``'s recipe at ``codec``: two mesh
+    parties of MESH6["ranks"] ranks on ``dev`` (both parties' meshes on
+    it), DeviceResidentTrainer, BSC 0.02, lr 0.05, party batch ranks x
+    128, LENET["rounds"] rounds, then the accuracy, LENET["timed"]
+    ``step_timed`` rounds and MESH6["thr_rounds"] timed rounds."""
+    from geomx_tpu_torch import telemetry
+    from geomx_tpu_torch.examples.utils import build_model_and_step, eval_acc
+    from geomx_tpu_torch.io import load_data
+    from geomx_tpu_torch.trainer_device import DeviceResidentTrainer
+
+    B = MESH6["ranks"] * LENET["batch"]
+    R = LENET["rounds"]
+    telemetry.enable(True)
+    leaves0, _names, grad_step, eval_step = build_model_and_step(
+        B, device=dev)
+    scope, extra = mesh_settings(codec, MESH6["lenet_2bit_threshold"])
+    warm = threading.Lock()
+    bar = threading.Barrier(2)
+    res, tel, counts = {}, {}, {}
+    tag = f"phase6a {codec}"
+
+    def worker(kv, w):
+        tr = DeviceResidentTrainer(
+            list(leaves0), kv, grad_step, threshold=LENET["threshold"],
+            learning_rate=LENET["lr"], momentum=0.0, device=dev)
+        if tr._mesh_quant != (codec != "none"):
+            fail(f"{tag}: the trainer did not take the {codec} mesh round")
+        train_iter, test_iter, _, _ = load_data(B, 2, w)
+        batches = [(torch.as_tensor(X, device=dev),
+                    torch.as_tensor(y, device=dev)) for X, y in train_iter]
+        with warm:          # no kv round inside: it would wait on the peer
+            tr.warmup(*batches[0])
+        bar.wait(JOIN_S)
+        if w == 0:
+            reset([fa.LAUNCHES, tb.LAUNCHES])
+        bar.wait(JOIN_S)
+        losses = [tr.step(*batches[0])]
+        round1 = np.concatenate([l.ravel() for l in tr.leaves])
+        losses += [tr.step(*batches[it % len(batches)])
+                   for it in range(1, R)]
+        bar.wait(JOIN_S)
+        if w == 0:
+            counts.update(fa.LAUNCHES, **tb.LAUNCHES)
+        acc = eval_acc(test_iter, tr.leaves, eval_step, device=dev)
+        timed = [tr.step_timed(*batches[j % len(batches)])[1]
+                 for j in range(LENET["timed"])]
+        bar.wait(JOIN_S)
+        if w == 0:
+            snap = telemetry.snapshot()
+            tel[0] = (telemetry.wan_bytes(snap), telemetry.mesh_bytes(snap))
+        bar.wait(JOIN_S)
+        t0 = time.perf_counter()
+        for i in range(MESH6["thr_rounds"]):
+            tr.step(*batches[i % len(batches)])
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        bar.wait(JOIN_S)
+        if w == 0:
+            snap = telemetry.snapshot()
+            tel[1] = (telemetry.wan_bytes(snap), telemetry.mesh_bytes(snap))
+        res[w] = dict(acc=acc, losses=losses, timed=timed, wall=wall,
+                      leaves=tr.leaves, round1=round1, batch1=batches[0])
+
+    with scope:
+        run_hips(worker, init_keys(np, leaves0), tag, barriers=[bar],
+                 topo_kw={"party_mesh_size": MESH6["ranks"], "device": dev,
+                          "extra_cfg": extra})
+        want1 = mesh_round1_replay(
+            torch, np, grad_step, leaves0,
+            [res[w]["batch1"] for w in (0, 1)], codec, dev).cpu().numpy()
+    flat0 = np.concatenate([l.ravel() for l in leaves0])
+    err1 = disp_err(np, res[0]["round1"], want1, flat0)
+    n = MESH6["thr_rounds"]
+    wan_round = (tel[1][0] - tel[0][0]) / n
+    mesh_round = (tel[1][1] - tel[0][1]) / n
+    img_s = n * B * 2 / max(r["wall"] for r in res.values())
+    print(f"[{tag}] LeNet, 2 parties x {MESH6['ranks']} ranks on {dev}, "
+          f"party batch {B}, BSC {LENET['threshold']}, lr {LENET['lr']}, "
+          f"mesh settings {extra}", flush=True)
+    print(f"[{tag}] test accuracy after {R} rounds: party 0 "
+          f"{res[0]['acc']:.4f}, party 1 {res[1]['acc']:.4f}; losses of "
+          f"rounds 1, {R // 2}, {R}: "
+          f"{[round(res[0]['losses'][i], 4) for i in (0, R // 2 - 1, -1)]}",
+          flush=True)
+    print(f"[{tag}] {img_s:.1f} img/s over {n} rounds (both parties), "
+          f"{wan_round:.1f} WAN bytes and {mesh_round:.1f} mesh bytes per "
+          f"round", flush=True)
+    print(f"[{tag}] launches in the {R} rounds {counts}", flush=True)
+    print(f"[{tag}] round 1's leaves against the plain replay of the round "
+          f"(parties' batches, party mean, 1/parties, top-k, global sum, "
+          f"SGD): displacement error {err1:.3e} by relative norm (gate "
+          f"{MESH6['round1_tol']}; a wrong party-mean or 1/parties scale "
+          f"reads 0.5 or more, a dropped round 1.0)", flush=True)
+    for w in (0, 1):
+        print(f"[{tag}] party {w} step_timed medians of {LENET['timed']} "
+              f"rounds (ms) {medians(res[w]['timed'])}", flush=True)
+    for w in (0, 1):
+        if not all(math.isfinite(x) for x in res[w]["losses"]):
+            fail(f"{tag}: party {w} non-finite loss")
+    check_replicas(np, [res[0]["leaves"], res[1]["leaves"]], tag)
+    if not np.array_equal(res[0]["round1"], res[1]["round1"]):
+        fail(f"{tag}: the parties' leaves differ after round 1")
+    if not err1 <= MESH6["round1_tol"]:
+        fail(f"{tag}: round 1 is {err1} off its plain replay by relative "
+             f"norm of the displacement, over {MESH6['round1_tol']}")
+    return dict(acc=[res[0]["acc"], res[1]["acc"]], img_s=img_s,
+                wan=wan_round, mesh=mesh_round, launches=counts,
+                round1_err=err1,
+                wire_ms=[medians(res[w]["timed"])["wire_ms"] for w in (0, 1)])
+
+
+def phase6a(torch, np, fa, tb, wire_4a, dev="cuda"):
+    """``bench.py`` ``bench_hips_mesh`` on the card: the main path's
+    recipe over mesh parties, with GEOMX_MESH_CODEC none and 2bit."""
+    from geomx_tpu_torch.examples.utils import build_model_and_step
+
+    leaves0 = build_model_and_step(LENET["batch"], device=dev)[0]
+    total = sum(l.size for l in leaves0)
+    probe = intra_party_ms(torch, total, dev)
+    print(f"[phase6a] intra_party_protocol_ms {probe:.4f} (party mean of a "
+          f"({MESH6['ranks']}, {total}) fp32 stack, median of "
+          f"{MESH6['probe_reps']}), beside phase 4a's measured wire "
+          f"{wire_4a} ms on this card", flush=True)
+    runs = {c: mesh_lenet(torch, np, fa, tb, c, dev)
+            for c in ("none", "2bit")}
+    none, q = runs["none"], runs["2bit"]
+    ratio = none["mesh"] / max(q["mesh"], 1e-9)
+    print(f"[phase6a] mesh bytes per round: none {none['mesh']:.1f}, 2bit "
+          f"{q['mesh']:.1f} ({ratio:.2f}x fewer)", flush=True)
+    for codec, floor in (("none", MESH6["acc_none"]),
+                         ("2bit", MESH6["acc_2bit"])):
+        acc = runs[codec]["acc"]
+        if min(acc) < floor:
+            fail(f"phase6a {codec}: accuracy {acc} below {floor}")
+    if dev == "cuda" and q["launches"]["two_bit"] == 0:
+        fail("phase6a 2bit: two_bit_kernel never launched")
+    if ratio < 14.0:
+        fail(f"phase6a: 2bit moves {q['mesh']} mesh bytes per round, not "
+             f"14x below none's {none['mesh']}")
+    return dict(runs=runs, probe_ms=probe)
+
+
+def phase6b(torch, np, fa, tb, dev="cuda"):
+    """The 59M decoder on mesh parties: 2 parties x MESH6["ranks"] ranks
+    on the card, 8 sequences per rank, the 2-bit ring, BSC 0.01 on the
+    party tier, lr 0.05, momentum 0.9; 1 warm-up round, MESH6["tf_rounds"]
+    counted ``step_timed`` rounds, 1 profiled round. Returns the launches
+    of each kernel per round."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from geomx_tpu_torch import telemetry
+    from geomx_tpu_torch.examples.transformer_bsc_device import (
+        build_transformer_grad_step, synth_batch)
+    from geomx_tpu_torch.trainer_device import DeviceResidentTrainer
+
+    R, P = MESH6["tf_rounds"], MESH6["ranks"]
+    B = P * BATCH
+    telemetry.enable(True)
+    leaves0, grad_step = build_transformer_grad_step(
+        **MODEL, compute_dtype=torch.bfloat16, device=dev, attn="auto")
+    scope, extra = mesh_settings("2bit", PARTY_THRESHOLD)
+    warm = threading.Lock()
+    bar = threading.Barrier(2)
+    bar3 = threading.Barrier(3)     # the two parties and this thread
+    res, counts, tel, prof = {}, {}, {}, {}
+
+    def worker(kv, w):
+        tr = DeviceResidentTrainer(
+            list(leaves0), kv, grad_step, threshold=HIPS_TF["threshold"],
+            learning_rate=HIPS_TF["lr"], momentum=HIPS_TF["momentum"],
+            device=dev)
+        rng = np.random.default_rng(1234 + w)
+        batches = [torch.as_tensor(synth_batch(rng, B, MODEL["seq_len"],
+                                               MODEL["vocab"]), device=dev)
+                   for _ in range(R + 1)]
+        with warm:          # no kv round inside: it would wait on the peer
+            tr.warmup(batches[0], None)
+        warmup = tr.step(batches[R], None)
+        bar.wait(JOIN_S)
+        if w == 0:
+            reset([fa.LAUNCHES, tb.LAUNCHES])
+            snap = telemetry.snapshot()
+            tel[0] = (telemetry.wan_bytes(snap), telemetry.mesh_bytes(snap))
+        bar.wait(JOIN_S)
+        timed = [tr.step_timed(batches[j], None) for j in range(R)]
+        bar.wait(JOIN_S)
+        if w == 0:
+            counts.update(fa.LAUNCHES, **tb.LAUNCHES)
+            snap = telemetry.snapshot()
+            tel[1] = (telemetry.wan_bytes(snap), telemetry.mesh_bytes(snap))
+        bar3.wait(JOIN_S)           # this thread starts the profiler
+        bar3.wait(JOIN_S)
+        phases = tr.step_timed(batches[0], None)[1]
+        if w == 0:
+            prof["phases"] = phases
+        bar3.wait(JOIN_S)           # this thread stops it
+        res[w] = dict(warmup=warmup, losses=[t[0] for t in timed],
+                      phases=[t[1] for t in timed], leaves=tr.leaves,
+                      round1=batches[R], k=tr.k)
+
+    def profile_one_round():
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                         if dev == "cuda" else [])
+        bar3.wait(JOIN_S)
+        with profile(activities=acts) as p:
+            t = time.perf_counter()
+            bar3.wait(JOIN_S)
+            bar3.wait(JOIN_S)
+            prof["wall"] = (time.perf_counter() - t) * 1e3
+        prof["p"] = p
+
+    with scope:
+        run_hips(worker, init_keys(np, leaves0), "phase6b",
+                 barriers=[bar, bar3], main_fn=profile_one_round,
+                 topo_kw={"party_mesh_size": P, "device": dev,
+                          "extra_cfg": extra})
+    per_round = {k: v / R for k, v in counts.items()}
+    wan_round = (tel[1][0] - tel[0][0]) / R
+    mesh_round = (tel[1][1] - tel[0][1]) / R
+    print(f"[phase6b] transformer of {sum(l.size for l in leaves0)} params, "
+          f"2 parties x {P} ranks on {dev}, {BATCH} sequences per rank, "
+          f"mesh settings {extra}, selection {res[0]['k']} per party",
+          flush=True)
+    for w in (0, 1):
+        print(f"[phase6b] party {w} warm-up loss {res[w]['warmup']:.6f}, "
+              f"counted losses {res[w]['losses']}", flush=True)
+        print(f"[phase6b] party {w} step_timed medians of {R} rounds (ms) "
+              f"{medians(res[w]['phases'])}", flush=True)
+    print(f"[phase6b] {wan_round:.1f} WAN bytes and {mesh_round:.1f} mesh "
+          "bytes per round", flush=True)
+    print(f"[phase6b] launches per round (both parties) {per_round}",
+          flush=True)
+    tc = None
+    if dev == "cuda":
+        tc = profile_summary(prof["p"], prof["wall"], prof["phases"],
+                             "phase6b profile")
+    for w in (0, 1):
+        if not all(math.isfinite(x) for x in
+                   [res[w]["warmup"]] + res[w]["losses"]):
+            fail(f"phase6b: party {w} non-finite loss")
+    if dev == "cuda":
+        want = 2 * P * MODEL["depth"]
+        for key in KERNELS:
+            if counts[key] != want * R:
+                fail(f"phase6b: {key} launched {counts[key]} times in {R} "
+                     f"rounds, expected {want} per round")
+        if counts["two_bit"] == 0:
+            fail("phase6b: two_bit_kernel never launched")
+        if tc is not None:
+            for name, n in tc.items():
+                if n != want:
+                    fail(f"phase6b profile: {name} ran {n} times in the "
+                         f"round, expected {want}")
+    check_replicas(np, [res[0]["leaves"], res[1]["leaves"]], "phase6b")
+
+    # round 1 (the warm-up round, from the initial leaves) against the
+    # same step with plain attention: the mean of the ranks' shard losses
+    def plain_attn(q, k, v):
+        return fa.flash_fwd_plain(q, k, v, causal=True)[0]
+
+    _, plain_step = build_transformer_grad_step(
+        **MODEL, compute_dtype=torch.bfloat16, device=dev, attn=plain_attn,
+        init_leaves=leaves0)
+    ref = [torch.as_tensor(l, device=dev) for l in leaves0]
+    toks = res[0]["round1"].reshape(P, BATCH, -1)
+    ref_loss = sum(float(plain_step(ref, toks[r], None)[0])
+                   for r in range(P)) / P
+    rel = abs(res[0]["warmup"] - ref_loss) / abs(ref_loss)
+    print(f"[phase6b] round-1 loss {res[0]['warmup']:.6f} vs plain "
+          f"attention {ref_loss:.6f}: rel diff {rel:.3e}", flush=True)
+    if rel > 2e-2:
+        fail(f"phase6b: round-1 loss differs from the plain-attention "
+             f"step by {rel}")
+    return per_round
+
+
 def main():
     try:
         import torch
@@ -1450,7 +1850,7 @@ def main():
     phase3c(torch, np, qc, pmesh)
     tb_launches = phase3d(torch, np, fa, tb, qc, pmesh)
     lap("phase3")
-    phase4a(torch, np, fa, tb)
+    main_path = phase4a(torch, np, fa, tb)
     lap("phase4a")
     hips_launches, dense = phase4b(torch, np, fa, tb)
     lap("phase4b")
@@ -1458,6 +1858,10 @@ def main():
     lap("phase4b-bsc")
     phase5(torch, np)
     lap("phase5")
+    mesh6a = phase6a(torch, np, fa, tb, main_path["wire_ms"])
+    lap("phase6a")
+    mesh6b = phase6b(torch, np, fa, tb)
+    lap("phase6b")
 
     table = [{
         "name": name, "route": "cuda", "source": SOURCE, "replaces": where,
@@ -1468,6 +1872,11 @@ def main():
         "device_ms": dev[key] if dev[key] is not None else "not measured",
         "library_device_ms": (library_dev[key] if library_dev[key] is not None
                               else "not measured"),
+        "launches_by_phase": {
+            "4b": hips_launches[key],
+            **{f"6a-{c}": r["launches"][key]
+               for c, r in mesh6a["runs"].items()},
+            "6b_per_round": mesh6b[key]},
     } for key, (name, where, kernel) in KERNELS.items()]
     table.append({
         "name": TWO_BIT[0], "route": "cuda", "source": TWO_BIT[1],
@@ -1476,7 +1885,12 @@ def main():
         "bound_ms": tb_bound, "bound_by": "bytes", "library_ms": None,
         "kernel": "two_bit_kernel",
         "device_ms": tb_dev if tb_dev is not None else "not measured",
-        "library_device_ms": None})
+        "library_device_ms": None,
+        "launches_by_phase": {
+            "3d": tb_launches,
+            **{f"6a-{c}": r["launches"]["two_bit"]
+               for c, r in mesh6a["runs"].items()},
+            "6b_per_round": mesh6b["two_bit"]}})
     print(card, flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,9 @@ tier's quantized ring all-reduce and ``DataParallelTrainer``
 ``simulate.InProcessHiPS``), the trainer's pipelined round, LeNet and its
 data (slice 5); the server-side optimizers (``optimizer``,
 ``lr_scheduler``) and the BASELINE.md feature configs as examples
-(slice 6). Unlike ``import geomx_tpu``, importing this package never
+(slice 6); the mesh-party tier (``kvstore.mesh_party``, the "nccl" store,
+``Trainer``, ``HierarchicalTrainer`` and the device trainer's mesh round)
+(slice 7). Unlike ``import geomx_tpu``, importing this package never
 enters the server loop: infrastructure roles run
 ``python -m geomx_tpu_torch.kvstore_server``.
 """
@@ -28,4 +30,5 @@ from geomx_tpu_torch import optimizer  # noqa: F401
 from geomx_tpu_torch import models  # noqa: F401
 from geomx_tpu_torch import ops  # noqa: F401
 from geomx_tpu_torch.kvstore import create  # noqa: F401
+from geomx_tpu_torch.trainer import Trainer  # noqa: F401
 from geomx_tpu_torch.trainer_device import DeviceResidentTrainer  # noqa: F401

@@ -12,6 +12,12 @@ geomx_tpu_torch.kvstore_server``) every worker runs:
 
   python -m geomx_tpu_torch.examples.cnn [-ms | -dc] [--cpu]
 
+With ``GEOMX_PARTY_MESH=1`` the same launch runs the mesh-party tier:
+``dist_sync`` resolves to the mesh-party store, one worker per party
+trains on the party's batch over a mesh of ``GEOMX_PARTY_MESH_SIZE``
+ranks, and with a ``GEOMX_MESH_CODEC`` the ranks' gradients meet in the
+quantized ring instead of the plain mean (``build_mesh_ring_step``).
+
 ``run_worker(kv, args, device)`` is the body each node runs once its
 store exists, so an ``InProcessHiPS`` can drive the same loop.
 """
@@ -58,7 +64,9 @@ def run_worker(kv, args, device=None, on_round=None):
 
     from geomx_tpu_torch import checkpoint
     from geomx_tpu_torch import optimizer as gx_opt
-    from geomx_tpu_torch.examples.utils import (Measure, build_model_and_step,
+    from geomx_tpu_torch.examples.utils import (Measure,
+                                                build_mesh_ring_step,
+                                                build_model_and_step,
                                                 eval_acc, host_grad_step,
                                                 init_and_pull, load_data)
 
@@ -74,6 +82,12 @@ def run_worker(kv, args, device=None, on_round=None):
     leaves, _names, grad_step, eval_step = build_model_and_step(
         args.batch_size, input_shape=input_shape, model=args.model,
         device=device)
+    if (getattr(kv, "type", "") == "dist_sync_mesh"
+            and getattr(kv, "mesh_codec", "none") != "none"
+            and not kv.is_master_worker):
+        # GEOMX_MESH_CODEC: the party's gradients ride the quantized ring
+        # instead of the plain mean over the party batch
+        grad_step = build_mesh_ring_step(kv, grad_step)
 
     start_epoch = 0
     resume_iters = 0
@@ -145,8 +159,10 @@ def main(argv=None):
     from geomx_tpu_torch._device import resolve_device
 
     device = resolve_device("cpu" if args.cpu else None)
+    # GEOMX_PARTY_MESH=1 resolves "dist_sync" to the mesh-party store,
+    # whose party mesh lives on ``device``
     kv = gx.kv.create("dist_async" if args.mixed_sync or args.dcasgd
-                      else "dist_sync")
+                      else "dist_sync", device=device)
     run_worker(kv, args, device)
 
 

@@ -48,7 +48,8 @@ def main(argv=None):
     from geomx_tpu_torch.trainer_device import DeviceResidentTrainer
 
     device = resolve_device("cpu" if args.cpu else None)
-    kv = gx.kv.create("local" if args.local else "dist_sync")
+    kv = gx.kv.create("local" if args.local else "dist_sync",
+                      device=device)
     if getattr(kv, "is_master_worker", False) or args.local:
         # WAN hop sparsified both directions, like cnn_bsc.py
         kv.set_gradient_compression(

@@ -109,7 +109,7 @@ def main(argv=None):
     from geomx_tpu_torch._device import resolve_device
 
     device = resolve_device("cpu" if args.cpu else None)
-    run_worker(gx.kv.create("dist_sync"), args, device)
+    run_worker(gx.kv.create("dist_sync", device=device), args, device)
 
 
 if __name__ == "__main__":

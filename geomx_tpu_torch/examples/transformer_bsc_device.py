@@ -109,7 +109,8 @@ def main(argv=None):
     from geomx_tpu_torch.trainer_device import DeviceResidentTrainer
 
     device = resolve_device("cpu" if args.cpu else None)
-    kv = gx.kv.create("local" if args.local else "dist_sync")
+    kv = gx.kv.create("local" if args.local else "dist_sync",
+                      device=device)
     num_all_workers = getattr(kv, "num_all_workers", 1) or 1
     my_rank = getattr(kv, "rank", 0)
 

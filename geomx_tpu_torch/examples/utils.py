@@ -5,9 +5,9 @@ Counterpart of ``examples/utils.py``: ``build_model_and_step`` for
 so the port's workers push the same keys and arrays as the JAX
 package's), ``host_grad_step`` (one packed transfer each way per
 round, the counterpart of ``build_flat_step``), ``eval_acc`` and the
-``Measure`` JSON reporter. The model zoo (``model != "cnn"``) is not
-ported yet (ROADMAP queue A item 11), nor is ``build_mesh_ring_step``
-(item 9).
+``Measure`` JSON reporter, and ``build_mesh_ring_step`` (the quantized
+mesh tier's gradient step). The model zoo (``model != "cnn"``) is not
+ported yet (ROADMAP queue A item 11).
 """
 
 from __future__ import annotations
@@ -112,6 +112,35 @@ def host_grad_step(leaves: List[np.ndarray], grad_step, device):
                       zip(np.split(flat_grads, bounds), shapes)]
 
     return step
+
+
+def build_mesh_ring_step(kv, grad_step):
+    """Quantized mesh tier (GEOMX_MESH_CODEC != "none"): wrap
+    ``grad_step`` so the batch splits over the party mesh's "dp" ranks
+    (``kv.shard_batch``), each rank computes its LOCAL mean-loss grads,
+    and every leaf is party-mean-reduced through the store's quantized
+    ring (``kv.ring_reducer`` — the error-feedback residual streams live
+    in the store, keyed, so round aborts reset them in one place).
+    Returns a drop-in ``(lv, X, y) -> (loss, grads)`` whose gradients are
+    every rank's (identical) copy of the ring's output. Counts the ring's
+    bytes under tier=mesh."""
+    def ring_step(lv, X, y):
+        X, y = kv.shard_batch(X, y)
+        losses, per_rank = [], []
+        for r in range(X.shape[0]):
+            loss, grads = grad_step(lv, X[r], y[r])
+            losses.append(loss)
+            per_rank.append(grads)
+        out = []
+        for idx, gs in enumerate(zip(*per_rank)):
+            shape = gs[0].shape
+            stack = torch.stack([g.reshape(-1) for g in gs])
+            red = kv.ring_reducer(idx, stack.shape[1], mean=True)
+            out.append(red.reduce(stack)[0].reshape(shape))
+        kv.record_round_collectives(out, op="ring")
+        return torch.stack(losses).mean(), out
+
+    return ring_step
 
 
 def init_and_pull(kv, leaves: List[np.ndarray]) -> None:

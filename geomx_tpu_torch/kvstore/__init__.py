@@ -3,16 +3,25 @@
 Counterpart of ``geomx_tpu/kvstore/__init__.py``. Accepted type strings:
 
 - "local" / "device"            — single-process host store
+- "nccl"                        — single-process multi-device allreduce
+                                  store (reference: kvstore_nccl.h:62):
+                                  the per-device values are summed on the
+                                  store's device (kvstore.device)
 - "dist" / "dist_sync" / "dist_sync_device" / "dist_sync_tpu"
                                 — distributed HiPS store, FSA (both tiers
                                   synchronous)
 - "dist_async"                  — distributed, MixedSync (async global
                                   tier)
+- "dist_sync_mesh"              — mesh-party tier: the party's ranks share
+                                  one device and aggregate there; one
+                                  global worker per party speaks the van
+                                  (kvstore.mesh_party). GEOMX_PARTY_MESH
+                                  makes the plain synchronous dist names
+                                  resolve here.
 
-The mesh-party tier ("dist_sync_mesh", or the plain dist names under
-GEOMX_PARTY_MESH) and "nccl" need the rest of the intra-party tier, not
-ported yet (ROADMAP queue A item 9): their names raise instead of
-falling back to another store.
+``device`` places the party mesh of the mesh-party store and the
+single device of the "nccl" store (None: the CUDA card, and raises
+without one); the other stores ignore it.
 """
 
 from __future__ import annotations
@@ -22,7 +31,7 @@ from geomx_tpu_torch.kvstore.base import Command, KVStore  # noqa: F401
 from geomx_tpu_torch.kvstore.local import KVStoreLocal  # noqa: F401
 
 
-def create(name: str = "local") -> KVStore:
+def create(name: str = "local", device=None) -> KVStore:
     tname = name.lower()
     if "dist" in tname:
         sync_global = "_sync" in tname or tname == "dist"
@@ -30,17 +39,17 @@ def create(name: str = "local") -> KVStore:
             sync_global = False
         if "_mesh" in tname or (sync_global
                                 and cfg_mod.load().party_mesh):
-            raise NotImplementedError(
-                f"kvstore {name!r} needs the mesh-party tier "
-                "(kvstore/mesh_party.py), not ported yet (ROADMAP queue A "
-                "item 9)")
+            from geomx_tpu_torch.kvstore.mesh_party import KVStorePartyMesh
+
+            return KVStorePartyMesh(sync_global=sync_global, device=device)
         from geomx_tpu_torch.kvstore.dist import KVStoreDist
 
         return KVStoreDist(sync_global=sync_global)
     if tname == "nccl":
-        raise NotImplementedError(
-            "kvstore 'nccl' needs the intra-party tier, not ported yet "
-            "(ROADMAP queue A item 9)")
+        from geomx_tpu_torch.kvstore.device import KVStoreDeviceAllreduce
+
+        return KVStoreDeviceAllreduce(
+            None if device is None else [device])
     if tname in ("local", "device"):
         return KVStoreLocal()
     raise ValueError(f"unknown kvstore type {name!r}")

@@ -1,14 +1,18 @@
 """The party mesh and the ring helpers of the intra-party tier.
 
 Counterpart of the part of ``geomx_tpu/parallel/mesh.py`` that the
-quantized ring all-reduce needs: ``ring_perm``, ``ring_chunk_layout``,
-``party_devices`` and a party mesh. A party is the ranks of the "dp"
-axis and the device they live on. This port supports a party whose
-ranks share one card, the only layout one H100 has: NCCL refuses two
-ranks on one GPU, so the ring is one program that holds every rank's
-data, stacked on a leading rank axis — single-controller, as the JAX
-package's shard_map is. A party over several cards (``torch.distributed``
-point-to-point hops) is not ported yet (ROADMAP queue A item 9).
+intra-party tier needs: ``ring_perm``, ``ring_chunk_layout``,
+``party_devices``, the party mesh (``make_party_mesh``) and the two
+placements of the mesh-party store, ``replicated`` and
+``batch_sharded``. A party is the ranks of the "dp" axis and the device
+they live on. This port supports a party whose ranks share one card, the
+only layout one H100 has: NCCL refuses two ranks on one GPU, so the ring
+is one program that holds every rank's data, stacked on a leading rank
+axis — single-controller, as the JAX package's shard_map is. Where the
+JAX package lays a value out with a ``NamedSharding``, the port uses that
+rank-stacked axis: ``(P, ...)``, rank r's row at index r. A party over
+several cards (``torch.distributed`` point-to-point hops) is not ported
+yet (ROADMAP queue A item 9).
 """
 
 from __future__ import annotations
@@ -21,12 +25,12 @@ import torch
 from geomx_tpu_torch._device import resolve_device
 
 __all__ = ["PartyMesh", "make_party_mesh", "party_devices", "ring_perm",
-           "ring_chunk_layout"]
+           "ring_chunk_layout", "replicated", "batch_sharded"]
 
 
 @dataclass(frozen=True)
 class PartyMesh:
-    """``size`` data-parallel ranks, all on ``device``."""
+    """``size`` data-parallel ranks of one party, all on ``device``."""
     size: int
     device: torch.device
 
@@ -35,12 +39,20 @@ class PartyMesh:
         return {"dp": self.size}
 
 
-def make_party_mesh(party_size: int, device=None) -> PartyMesh:
-    """Pure-dp party of ``party_size`` ranks on one device
-    (``device=None`` is the CUDA card, and raises without one)."""
-    if int(party_size) < 1:
-        raise ValueError(f"party_size must be >= 1, got {party_size}")
-    return PartyMesh(int(party_size), resolve_device(device))
+def make_party_mesh(party_size: int, party_index: int = 0,
+                    device=None) -> PartyMesh:
+    """Pure-dp mesh of party ``party_index``: ``party_size`` ranks on one
+    device (``device=None`` is the CUDA card, and raises without one).
+    Several parties of one process share that device, each with a mesh
+    of its own. ``party_size`` 0 is the JAX package's "every local
+    device": one rank per visible card, at least one."""
+    dev = resolve_device(device)
+    size = int(party_size)
+    if size == 0:
+        size = max(1, torch.cuda.device_count() if dev.type == "cuda" else 1)
+    if size < 1:
+        raise ValueError(f"party_size must be >= 0, got {party_size}")
+    return PartyMesh(size, dev)
 
 
 def party_devices(party_size: int = 0, party_index: int = 0,
@@ -81,3 +93,21 @@ def ring_chunk_layout(n: int, size: int, multiple: int = 1
     mult = max(1, int(multiple))
     m = -(-m // mult) * mult
     return m, size * m
+
+
+def replicated(mesh: PartyMesh, x) -> torch.Tensor:
+    """``x`` replicated over the party: one tensor on the party's device,
+    which every rank reads (the counterpart of ``NamedSharding(mesh,
+    P())``)."""
+    return torch.as_tensor(x).to(mesh.device)
+
+
+def batch_sharded(mesh: PartyMesh, x) -> torch.Tensor:
+    """``x`` split over the party's "dp" axis as ``jax.device_put`` with
+    ``P("dp")`` splits it: rank r gets the contiguous rows ``[r*B/P,
+    (r+1)*B/P)``, stacked as ``(P, B/P, ...)`` on the party's device."""
+    t = torch.as_tensor(x).to(mesh.device)
+    if t.ndim == 0 or t.shape[0] % mesh.size:
+        raise ValueError(f"a batch of {tuple(t.shape)} does not split over "
+                         f"{mesh.size} ranks")
+    return t.reshape(mesh.size, t.shape[0] // mesh.size, *t.shape[1:])

@@ -1,7 +1,8 @@
-"""Data-parallel train steps over a party's ranks (tier 0/1).
+"""Data-parallel train steps over a party's ranks (tier 0/1), and the
+hierarchical trainer that composes them with the HiPS kv store (tier 2).
 
-Counterpart of ``DataParallelTrainer`` in
-``geomx_tpu/parallel/train_step.py``: the parameters are replicated, the
+Counterpart of ``geomx_tpu/parallel/train_step.py``.
+``DataParallelTrainer``: the parameters are replicated, the
 batch is split over the "dp" ranks, and the step either mean-reduces the
 gradient and applies the optimizer (``step``) or hands back each rank's
 local gradient for an explicit collective such as the quantized ring
@@ -14,19 +15,27 @@ The model is a ``torch.nn.Module`` (parameters in flax leaf order as
 :func:`geomx_tpu_torch.models.convert.leaf_names` gives it) and the
 optimizer a ``torch.optim`` optimizer over its parameters. The loss is
 the JAX package's: the mean softmax cross-entropy of the logits against
-integer labels. ``HierarchicalTrainer`` waits for the kv store tiers
-(ROADMAP queue A items 4 and 9).
+integer labels.
+
+``HierarchicalTrainer`` exchanges the party's aggregated gradient with
+the HiPS global tier through the kv store each round: the global server
+runs the optimizer (FSA) and the fresh parameters are installed back
+into the model. Over a mesh-party store the party's ranks aggregate on
+the device first (the fp32 mean, or the store's quantized ring per key
+with ``GEOMX_MESH_CODEC``) and only the party's global worker speaks the
+van, one combined ``push_pull`` per round.
 """
 
 from __future__ import annotations
 
 from typing import List, Tuple
 
+import numpy as np
 import torch
 
 from geomx_tpu_torch.models.convert import leaf_names
 
-__all__ = ["DataParallelTrainer"]
+__all__ = ["DataParallelTrainer", "HierarchicalTrainer"]
 
 
 class DataParallelTrainer:
@@ -89,3 +98,88 @@ class DataParallelTrainer:
         grads = [torch.stack([g[i] for _, g in out])
                  for i in range(len(self.params))]
         return losses, grads
+
+
+class HierarchicalTrainer:
+    """Tier-1 party aggregation + tier-2 HiPS exchange (geo-DP).
+
+    Replaces the reference worker's per-layer push/pull loop
+    (examples/cnn.py:121-124): the party IS the data center; the kv store
+    carries only one aggregated gradient per key across the WAN. The
+    global server runs the optimizer (FSA semantics) and the fresh
+    parameters are installed back into the model.
+    """
+
+    def __init__(self, trainer: DataParallelTrainer, kvstore,
+                 priority_by_key: bool = True):
+        self.t = trainer
+        self.kv = kvstore
+        self.priority_by_key = priority_by_key
+        # mesh-party store (kvstore.mesh_party): the trainer's mesh IS the
+        # party — the van round shrinks to the global worker's combined
+        # push_pull and the fresh params come back through _install
+        self._mesh_store = getattr(kvstore, "mesh", None) is not None \
+            and hasattr(kvstore, "record_round_collectives")
+        self._host = [p.detach().cpu().numpy().copy() for p in self.t.params]
+
+    def init_on_kvstore(self) -> None:
+        for idx, leaf in enumerate(self._host):
+            self.kv.init(idx, leaf)
+            if not getattr(self.kv, "is_master_worker", False):
+                self.kv.pull(idx, out=self._host[idx])
+        self.kv.wait()
+        self._install()
+
+    @torch.no_grad()
+    def _install(self) -> None:
+        for p, h in zip(self.t.params, self._host):
+            p.copy_(torch.from_numpy(h))
+
+    def step(self, X, y) -> float:
+        if self._mesh_store and \
+                getattr(self.kv, "mesh_codec", "none") != "none":
+            return self._step_mesh_quant(X, y)
+        loss, glist = self.t.grads(X, y)
+        if self._mesh_store:
+            return self._step_mesh(glist, loss)
+        for idx, g in enumerate(glist):
+            pr = -idx if self.priority_by_key else 0
+            self.kv.push(idx, g.cpu().numpy(), priority=pr)
+            self.kv.pull(idx, out=self._host[idx], priority=pr)
+        self.kv.wait()
+        self._install()
+        return float(loss)
+
+    def _step_mesh_quant(self, X, y) -> float:
+        """Quantized mesh round (GEOMX_MESH_CODEC != "none"): the ranks'
+        local grads go through one quantized ring PER KEY
+        (``kv.ring_reducer`` — the error-feedback residual streams live
+        in the store, keyed, so round aborts reset them in one place)
+        instead of the fp32 mean. Every rank's row of the ring's output
+        is the same; the van leg and the accounting are
+        :meth:`_step_mesh`'s."""
+        losses, grads = self.t.local_grads(X, y)
+        glist = []
+        for idx, g in enumerate(grads):
+            shape = g.shape[1:]
+            n = int(np.prod(shape)) if len(shape) else 1
+            red = self.kv.ring_reducer(idx, n, mean=True)
+            glist.append(red.reduce(g.reshape(g.shape[0], -1))[0]
+                         .reshape(shape))
+        return self._step_mesh(glist, losses.mean())
+
+    def _step_mesh(self, glist, loss) -> float:
+        """Mesh-party round: the party's aggregate is in ``glist`` —
+        account its collective under tier=mesh, then one combined
+        push_pull round on the van (this process speaks for the whole
+        party); the result goes back into the model."""
+        self.kv.record_round_collectives(glist)
+        vals = [g.cpu().numpy() for g in glist]
+        if len(vals) == 1:
+            self.kv.push_pull(0, vals[0], self._host[0], priority=0)
+        else:
+            self.kv.push_pull(list(range(len(vals))), vals, self._host,
+                              priority=0)
+        self.kv.wait()
+        self._install()
+        return float(loss)

@@ -18,9 +18,11 @@ from typing import Callable, List, Optional
 
 from geomx_tpu_torch.config import Config
 from geomx_tpu_torch.kvstore.dist import KVStoreDist
+from geomx_tpu_torch.kvstore.mesh_party import KVStorePartyMesh
 from geomx_tpu_torch.kvstore.server import KVStoreDistServer
 from geomx_tpu_torch.ps import base as psbase
 from geomx_tpu_torch.ps.message import Role
+from geomx_tpu_torch.parallel.mesh import make_party_mesh
 from geomx_tpu_torch.ps.postoffice import Postoffice
 
 __all__ = ["free_port", "InProcessHiPS"]
@@ -44,6 +46,11 @@ class InProcessHiPS:
     the party workers (rank-ordered per party), ``master`` the master
     worker. ``stop()`` runs the full shutdown cascade and re-raises any
     node's error.
+
+    ``party_mesh_size`` > 0 runs the mesh-party tier: each party's
+    workers collapse into ONE :class:`KVStorePartyMesh` over a party mesh
+    of that many ranks on ``device`` (None: the CUDA card; every party's
+    mesh shares it), so ``workers`` holds one store per party.
     """
 
     def __init__(self, num_parties: int = 2, workers_per_party: int = 1,
@@ -53,17 +60,24 @@ class InProcessHiPS:
                  bigarray_bound: int = 1_000_000,
                  party_mesh_size: int = 0,
                  extra_cfg: Optional[dict] = None,
-                 per_party_cfg: Optional[dict] = None):
+                 per_party_cfg: Optional[dict] = None, device=None):
         self.gport = free_port()
         self.cports = [free_port() for _ in range(num_parties + 1)]
         self.num_parties = num_parties
         self.wpp = workers_per_party
-        # mesh-party tier (kvstore.mesh_party): one KVStorePartyMesh per
-        # party over a slice of local devices
-        if int(party_mesh_size) > 0:
+        # mesh-party tier (kvstore.mesh_party): each party's workers
+        # collapse into ONE KVStorePartyMesh over a party mesh of
+        # ``party_mesh_size`` ranks on ``device`` — the van sees one worker
+        # per party, intra-party aggregation runs on the device
+        self.pms = int(party_mesh_size)
+        self.van_wpp = 1 if self.pms > 0 else self.wpp
+        self.device = device
+        if self.pms > 0 and int((extra_cfg or {}).get(
+                "mesh_num_processes", 0)) > 1:
             raise NotImplementedError(
-                "mesh parties need KVStorePartyMesh (kvstore/mesh_party.py), "
-                "not ported yet (ROADMAP queue A item 9)")
+                "an in-process party mesh is one process; a party over "
+                "several processes is not ported yet (ROADMAP queue A "
+                "item 9)")
         self.ngs = num_global_servers
         # servers_per_party: an int (uniform) or a per-party list —
         # non-uniform topologies need cfg.num_parties for exact FSA
@@ -75,7 +89,11 @@ class InProcessHiPS:
             assert len(self.spp_list) == num_parties
         self.spp = self.spp_list[0]
         self.ngw = sum(self.spp_list)
-        self.num_all = num_parties * workers_per_party
+        # in mesh mode the global tier sums one aggregate per party, so
+        # the cross-party trainer count the wire scaling sees is the
+        # party count, not members x parties
+        self.num_all = (num_parties if self.pms > 0
+                        else num_parties * workers_per_party)
         self.bigarray_bound = bigarray_bound
         self.use_hfa = use_hfa
         self.hfa_k2 = hfa_k2
@@ -174,16 +192,32 @@ class InProcessHiPS:
         for p in range(self.num_parties):
             port = self.cports[p + 1]
             spp = self.spp_list[p]
-            self._spawn(self._run_sched, port, False, self.wpp, spp)
+            self._spawn(self._run_sched, port, False, self.van_wpp, spp)
             for _ in range(spp):
                 cfg = self._common(
                     party=p, role="server",
                     ps_root_uri="127.0.0.1", ps_root_port=port,
-                    num_workers=self.wpp, num_servers=spp,
+                    num_workers=self.van_wpp, num_servers=spp,
                 )
                 srv = KVStoreDistServer(cfg)
                 self.servers.append(srv)
                 self._spawn(srv.run)
+            if self.pms > 0:
+                # mesh party: ONE van worker — the party's global worker —
+                # driving a party mesh of ``pms`` ranks
+                wcfg = self._common(
+                    party=p, role="worker", party_mesh=True,
+                    party_mesh_size=self.pms,
+                    ps_root_uri="127.0.0.1", ps_root_port=port,
+                    num_workers=1, num_servers=spp,
+                )
+                mesh = make_party_mesh(self.pms, p, device=self.device)
+                box: list = []
+                worker_boxes.append(box)
+                self._spawn(lambda b=box, c=wcfg, m=mesh: b.append(
+                    KVStorePartyMesh(sync_global=self.sync_global,
+                                     cfg=c, mesh=m)))
+                continue
             for _ in range(self.wpp):
                 wcfg = self._common(
                     party=p, role="worker",

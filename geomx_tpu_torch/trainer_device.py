@@ -1,7 +1,7 @@
 """Device-resident sparse trainer: params never leave the accelerator.
 
-Counterpart of ``geomx_tpu/trainer_device.py`` (the monolithic and the
-pipelined round; the mesh-party branches wait for the intra-party tier).
+Counterpart of ``geomx_tpu/trainer_device.py``: the monolithic and the
+pipelined round, and the mesh-party round.
 The parameters stay on ``device`` as one flat fp32 vector, beside the
 BSC buffers u and v and the optional momentum, and each round moves
 only:
@@ -29,10 +29,26 @@ The updates round where XLA rounds them in the JAX package, so both
 packages produce the same bits: ``u = 0.9 u + g`` and ``flat - lr * x``
 are fused multiply-adds (:func:`_fma`), and the momentum update adds the
 aggregate onto the rounded ``momentum * mom``.
+
+Over a mesh-party store (``kvstore.mesh_party``) the trainer drives the
+whole party: its state lives once, on the party's device, the batch is
+the party's, split over the ranks as ``(P, B/P, ...)``, and the BSC
+selection runs on the party-MEAN gradient, so the van carries one
+worker's traffic per party. ``num_all_workers`` is then the number of
+parties, so the ``g / nw`` scaling matches the wire path's. With
+``GEOMX_MESH_CODEC`` "none" the party mean is the gradient of the mean
+loss over the whole party batch, one forward and backward pass (the
+JAX package's psum of the ranks' shard means; equal up to fp32 rounding).
+With "int8", "2bit" or "fp16" each rank takes the gradient of its own
+shard's mean loss and the ``(P, n)`` stack goes through one quantized
+ring (:func:`parallel.quant_collectives.ring_all_reduce`) whose
+error-feedback residual the trainer carries from round to round; the
+result over P is the party mean and is identical on every rank.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Any, Callable, Dict, List, Sequence, Tuple
 
@@ -43,6 +59,8 @@ from geomx_tpu_torch import profiler
 from geomx_tpu_torch._device import resolve_device
 from geomx_tpu_torch.kvstore.frontier import plan_chunks
 from geomx_tpu_torch.ops import _fma
+from geomx_tpu_torch.parallel import quant_collectives as qc
+from geomx_tpu_torch.parallel.mesh import PartyMesh
 
 __all__ = ["DeviceResidentTrainer"]
 
@@ -55,22 +73,33 @@ class DeviceResidentTrainer:
         """``params``: list of array leaves (key of leaf i = ``begin_key +
         i``); ``grad_fn(leaf_list, X, y) -> (loss, grad_leaves)`` takes
         tensors on ``device``. ``device=None`` is the CUDA card, and
-        raises without one; pass ``device="cpu"`` for the CPU.
+        raises without one; pass ``device="cpu"`` for the CPU. Over a
+        mesh-party store the device is the party mesh's.
 
         The local optimizer is SGD on the aggregated selection, as in the
         JAX package: BSC's residual feedback delivers accumulated
         gradients, so plain SGD applies each coordinate's full mass."""
-        self.device = resolve_device(device)
+        # mesh-party store: state lives on the party's device, batches
+        # split over its "dp" ranks
+        self._mesh = getattr(kvstore, "mesh", None)
+        if self._mesh is None:
+            self.device = resolve_device(device)
+        elif not isinstance(self._mesh, PartyMesh):
+            raise NotImplementedError(
+                "a party mesh over several devices or processes is not "
+                "ported yet (ROADMAP queue A item 9); the port's party "
+                "ranks share one device (parallel.mesh.PartyMesh)")
+        else:
+            self.device = self._mesh.device
+            if device is not None and torch.device(device) != self.device:
+                raise ValueError(f"device {device} is not the party mesh's "
+                                 f"device {self.device}")
         self.kv = kvstore
         self.begin_key = begin_key
         self.threshold = threshold
         self.learning_rate = learning_rate
         self.momentum = momentum
         self._grad_fn = grad_fn
-        if getattr(kvstore, "mesh", None) is not None:
-            raise NotImplementedError(
-                "mesh-party stores need the intra-party tier, not ported "
-                "yet (ROADMAP queue A item 9)")
 
         leaves = [np.asarray(p, np.float32) for p in params]
         self._shapes = [l.shape for l in leaves]
@@ -141,6 +170,25 @@ class DeviceResidentTrainer:
                              nw * (sel_hi - sel_lo)))
             self._chunk_meta = meta
 
+        # quantized mesh collective (GEOMX_MESH_CODEC != "none"): the
+        # party aggregate goes through the quantized ring, whose
+        # error-feedback residual the trainer carries between rounds
+        mesh_codec = ((getattr(kcfg, "mesh_codec", "none") or "none")
+                      if self._mesh is not None else "none")
+        self._mesh_quant = mesh_codec != "none"
+        if self._mesh_quant:
+            self._mesh_size = int(self._mesh.size)
+            self._mesh_codec = mesh_codec
+            self._mesh_block = int(getattr(kcfg, "mesh_block", 256) or 256)
+            self._mesh_thr = float(getattr(kcfg, "wire_2bit_threshold", 0.5))
+            self._mesh_res = self._zero_mesh_res()
+            self._mesh_res_stale = threading.Event()
+            # abort recovery re-seeds this trainer's residual along with
+            # the store-keyed reducers
+            if hasattr(self.kv, "register_residual_reset_hook"):
+                self.kv.register_residual_reset_hook(
+                    self._reset_mesh_residual)
+
     @property
     def pipelined(self) -> bool:
         """True when rounds run pipelined (GEOMX_OVERLAP with an async
@@ -165,6 +213,48 @@ class DeviceResidentTrainer:
     def _grad_cat(self, flat, X, y):
         loss, grads = self._grad_fn(self._leaf_views(flat), X, y)
         return loss, torch.cat([g.reshape(-1) for g in grads])
+
+    def _zero_mesh_res(self) -> torch.Tensor:
+        return qc.zero_residual(self._mesh_size, self.total,
+                                self._mesh_codec, self._mesh_block,
+                                device=self.device)
+
+    def _reset_mesh_residual(self) -> None:
+        """Mark the ring's error-feedback streams for re-seeding at zero —
+        round aborts must not replay stale error into the retried round.
+        It runs on the store's van thread (round_abort_hook) while this
+        trainer's thread may be inside a ring, so it only sets a flag:
+        the next ring starts from zero."""
+        self._mesh_res_stale.set()
+
+    def _party_grad(self, flat, X, y):
+        """``(loss, flat gradient)`` of one round: the worker's own, or
+        over a mesh-party store the party mean of the ``(P, B/P, ...)``
+        batch. The quantized ring advances ``self._mesh_res``."""
+        if self._mesh is None:
+            return self._grad_cat(flat, X, y)
+        if not self._mesh_quant:
+            # the party mean: the gradient of the mean loss over the
+            # whole party batch (the JAX package's psum of the ranks'
+            # shard means)
+            return self._grad_cat(
+                flat, X.flatten(0, 1), None if y is None else y.flatten(0, 1))
+        P = self._mesh_size
+        losses, grads = [], []
+        for r in range(P):
+            loss, g = self._grad_cat(flat, X[r], None if y is None else y[r])
+            losses.append(loss.detach().to(torch.float32))
+            grads.append(g)
+        stack = torch.stack(grads)
+        del grads
+        if self._mesh_res_stale.is_set():
+            self._mesh_res_stale.clear()
+            self._mesh_res = self._zero_mesh_res()
+        out, self._mesh_res = qc.ring_all_reduce(
+            stack, self._mesh_res, size=P, codec=self._mesh_codec,
+            block=self._mesh_block, threshold=self._mesh_thr)
+        # every rank's row is the same sum; /P restores the party mean
+        return torch.stack(losses).sum() / P, out[0] / P
 
     def _bsc(self, loss, g, u, v):
         """BSC: momentum-corrected accumulation, exact per-key top-k
@@ -195,7 +285,7 @@ class DeviceResidentTrainer:
     def _fwd_compress(self, flat, u, v, X, y):
         """Gradient + BSC select + pack: ``(packed, u, v)`` with packed =
         [loss, vals(K) as int32 bits, idx(K)]."""
-        loss, g = self._grad_cat(flat, X, y)
+        loss, g = self._party_grad(flat, X, y)
         loss, vals, idx, u, v = self._bsc(loss, g / self._num_workers, u, v)
         packed = torch.cat([
             loss.detach().to(torch.float32).reshape(1).view(torch.int32),
@@ -206,7 +296,7 @@ class DeviceResidentTrainer:
         """Chunked twin of :meth:`_fwd_compress`: ``(loss, packs, u, v)``
         with one packed int32 array [vals as int32 bits, idx] PER CHUNK,
         so the host can fetch and dispatch each chunk independently."""
-        loss, g = self._grad_cat(flat, X, y)
+        loss, g = self._party_grad(flat, X, y)
         loss, vals, idx, u, v = self._bsc(loss, g / self._num_workers, u, v)
         packs = [torch.cat([vals[lo:hi].view(torch.int32), idx[lo:hi]])
                  for lo, hi, _f, _s, _c in self._chunk_meta]
@@ -253,6 +343,20 @@ class DeviceResidentTrainer:
             return None
         return torch.as_tensor(X).to(self.device)
 
+    def _place_batch(self, X, y):
+        """The batch on the device; over a mesh-party store split over
+        the party's ranks as ``(P, B/P, ...)``."""
+        if self._mesh is None:
+            return self._to_device(X), self._to_device(y)
+        return self.kv.shard_batch(X, y)
+
+    def _count_mesh_round(self) -> None:
+        """Account one round's intra-party collective volume (from the
+        gradient's shape, tier=mesh, so telemetry.wan_bytes() stays
+        honest)."""
+        if self._mesh is not None:
+            self.kv.count_collective(self.total * 4)
+
     def _upload(self, ups: np.ndarray, upi: np.ndarray) -> torch.Tensor:
         n = len(ups)
         if n > self._up_cap:
@@ -284,7 +388,8 @@ class DeviceResidentTrainer:
         """Run both device steps once WITHOUT a kv round (results
         discarded, trainer state untouched): builds the kernels and warms
         the allocator before the first timed round."""
-        X, y = self._to_device(X), self._to_device(y)
+        X, y = self._place_batch(X, y)
+        res = self._mesh_res if self._mesh_quant else None
         self._fwd_compress(self._flat, self._u, self._v, X, y)
         up = torch.zeros(2 * self._up_cap, dtype=torch.int32,
                          device=self.device)
@@ -299,6 +404,8 @@ class DeviceResidentTrainer:
                     self._flat.clone(),
                     None if self._mom is None else self._mom.clone(),
                     up0, flo, fsize)
+        if self._mesh_quant:
+            self._mesh_res = res
         self._sync()
 
     # -- one round -------------------------------------------------------
@@ -311,7 +418,8 @@ class DeviceResidentTrainer:
         sparse wire) the round runs per chunk — dispatch every chunk's
         fetch+send first, then apply each as its aggregate lands — with
         the same post-round state."""
-        X, y = self._to_device(X), self._to_device(y)
+        X, y = self._place_batch(X, y)
+        self._count_mesh_round()
         if self._pipeline:
             return self._step_pipelined(X, y)
         packed_d, self._u, self._v = self._fwd_compress(
@@ -421,7 +529,8 @@ class DeviceResidentTrainer:
         value fetch. Phases run serially, the pipelined round's chunks
         included, so each bucket is attributable. Audit tool, not the
         training loop."""
-        X, y = self._to_device(X), self._to_device(y)
+        X, y = self._place_batch(X, y)
+        self._count_mesh_round()
         if self._pipeline:
             return self._step_timed_pipelined(X, y)
         t0 = time.perf_counter()

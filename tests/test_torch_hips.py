@@ -249,8 +249,13 @@ def test_mixed_topology_matches_the_jax_package(sched, server, worker):
 
 
 def test_mesh_party_refused_up_front():
+    """A party mesh over several processes is not ported: refused before
+    any node starts (in-process mesh parties run; see
+    tests/test_torch_mesh_party.py)."""
     with pytest.raises(NotImplementedError, match="item 9"):
-        tsim.InProcessHiPS(num_parties=2, party_mesh_size=2)
+        tsim.InProcessHiPS(num_parties=2, party_mesh_size=2,
+                           extra_cfg={"mesh_num_processes": 2,
+                                      "mesh_coordinator": "localhost:1"})
 
 
 def test_simulate_import_leaves_jax_out_of_the_process():

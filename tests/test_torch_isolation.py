@@ -3,8 +3,9 @@
 The port imports torch and never jax, flax or geomx_tpu (checked both at
 run time in a fresh interpreter and statically over every source file,
 ``chip_smoke.py`` included); its entry points raise without a CUDA card
-unless the caller asks for the CPU; and the kv store names it has not
-ported raise instead of quietly becoming another store.
+unless the caller asks for the CPU; and every kv store name maps to the
+store the JAX package's factory gives it, or raises, instead of quietly
+becoming another store.
 """
 
 import ast
@@ -44,6 +45,10 @@ def test_import_leaves_jax_out_of_the_process():
         "import geomx_tpu_torch.examples.cnn_bsc\n"
         "import geomx_tpu_torch.examples.cnn_mpq\n"
         "import geomx_tpu_torch.examples.cnn_hfa\n"
+        "import geomx_tpu_torch.kvstore.mesh_party\n"
+        "import geomx_tpu_torch.kvstore.device\n"
+        "import geomx_tpu_torch.trainer\n"
+        "import geomx_tpu_torch.models.mlp\n"
         f"print(sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r}))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
@@ -112,22 +117,43 @@ def test_example_runs_on_the_cpu_when_asked(capsys):
 @pytest.mark.parametrize("name", ["dist_sync", "dist_async", "dist",
                                   "dist_sync_mesh", "nccl"])
 def test_unported_kvstores_raise(name, monkeypatch):
-    """The mesh-party and nccl stores still raise; the HiPS names map to
-    ``KVStoreDist`` with the JAX factory's ``sync_global`` (checked with
-    the class stubbed out, so no node starts)."""
+    """The HiPS names map to ``KVStoreDist`` with the JAX factory's
+    ``sync_global``, "dist_sync_mesh" (and "dist_sync" under
+    GEOMX_PARTY_MESH) to ``KVStorePartyMesh``, "nccl" to
+    ``KVStoreDeviceAllreduce`` (checked with the classes stubbed out, so
+    no node starts); a name no store has raises."""
     import geomx_tpu_torch.kvstore.dist as dist
+    import geomx_tpu_torch.kvstore.mesh_party as mesh_party
 
     made = []
     monkeypatch.setattr(dist, "KVStoreDist",
                         lambda sync_global: made.append(sync_global) or "kv")
+    monkeypatch.setattr(
+        mesh_party, "KVStorePartyMesh",
+        lambda sync_global, device: made.append(("mesh", sync_global,
+                                                 device)) or "mesh")
     want = {"dist_sync": True, "dist_async": False, "dist": True}
     if name in want:
         assert gx.kv.create(name) == "kv"
         assert made == [want[name]]
+        monkeypatch.setenv("GEOMX_PARTY_MESH", "1")
+        made.clear()
+        if want[name]:
+            assert gx.kv.create(name, device="cpu") == "mesh"
+            assert made == [("mesh", True, "cpu")]
+        else:                   # MixedSync keeps its asynchronous store
+            assert gx.kv.create(name) == "kv"
+            assert made == [False]
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gx.kv.create(name)
+    if name == "dist_sync_mesh":
+        assert gx.kv.create(name) == "mesh"
+        assert made == [("mesh", True, None)]
+        return
+    kv = gx.kv.create(name, device="cpu")
+    assert kv.type == "nccl" and kv.devices == [torch.device("cpu")]
     assert made == []
+    with pytest.raises(ValueError, match="unknown kvstore"):
+        gx.kv.create("nccl2")
 
 
 def test_local_store_matches_the_jax_package():

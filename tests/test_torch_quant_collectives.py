@@ -53,8 +53,8 @@ def test_ring_bit_exact_vs_jax(codec, n):
     P, block, thr = 4, 64, 0.5
     theirs = jax_qc.QuantRingReducer(_jax_mesh(P), codec, n, block=block,
                                      threshold=thr)
-    ours = qc.QuantRingReducer(pmesh.make_party_mesh(P, "cpu"), codec, n,
-                               block=block, threshold=thr)
+    ours = qc.QuantRingReducer(pmesh.make_party_mesh(P, device="cpu"),
+                               codec, n, block=block, threshold=thr)
     rng = np.random.RandomState(3)
     for rnd in range(3):
         xs = rng.randn(P, n).astype(np.float32)
@@ -76,8 +76,9 @@ def test_none_is_the_sum_and_bytes_models_agree():
     for mean in (False, True):
         want = np.asarray(jax_qc.QuantRingReducer(
             _jax_mesh(P), "none", n, mean=mean).reduce(xs))
-        got = qc.QuantRingReducer(pmesh.make_party_mesh(P, "cpu"), "none",
-                                  n, mean=mean).reduce(torch.as_tensor(xs))
+        got = qc.QuantRingReducer(pmesh.make_party_mesh(P, device="cpu"),
+                                  "none", n, mean=mean
+                                  ).reduce(torch.as_tensor(xs))
         for r in range(P):
             np.testing.assert_allclose(got[r].numpy(), want, atol=1e-6,
                                        rtol=1e-6)
@@ -96,7 +97,7 @@ def test_ring_helpers_and_errors():
     for src, dst in pmesh.ring_perm(4):
         assert rolled[dst] == x[src]
     assert pmesh.party_devices(2, 1, devices=list("abcd")) == ["c", "d"]
-    mesh = pmesh.make_party_mesh(2, "cpu")
+    mesh = pmesh.make_party_mesh(2, device="cpu")
     assert mesh.shape == {"dp": 2}
     with pytest.raises(ValueError, match="none"):
         qc.ring_all_reduce(torch.zeros(2, 8), qc.zero_residual(2, 8, "2bit"),
@@ -144,7 +145,7 @@ def _torch_trainer(init):
     convert.load_flax_leaves(model, init)
     return DataParallelTrainer(
         model, torch.optim.SGD(model.parameters(), lr=LR),
-        pmesh.make_party_mesh(2, "cpu"), num_classes=DIMS["vocab"])
+        pmesh.make_party_mesh(2, device="cpu"), num_classes=DIMS["vocab"])
 
 
 def _assert_params(tt, jt):

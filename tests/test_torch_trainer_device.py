@@ -181,7 +181,8 @@ def test_unported_store_paths_raise():
 
     grad = lambda lv, X, y: (None, lv)  # noqa: E731
     # the pipelined round is ported: an overlapped async sparse store
-    # gets its chunk plan; the mesh-party branch still raises
+    # gets its chunk plan; a mesh that is not a one-device party mesh
+    # (parallel.mesh.PartyMesh) still raises
     tr = DeviceResidentTrainer([np.zeros(4, np.float32)], Overlapped(),
                                grad, device="cpu")
     assert tr.pipelined and len(tr._chunks) == 1

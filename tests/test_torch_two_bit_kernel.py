@@ -61,7 +61,7 @@ def test_kernel_strided_rows_in_place(cuda_device, m):
 def test_ring_on_card_equals_ring_on_cpu(cuda_device):
     P, n = 2, 4099
     xs = torch.randn(P, n, generator=torch.Generator().manual_seed(1))
-    reds = [qc.QuantRingReducer(pmesh.make_party_mesh(P, d), "2bit", n,
+    reds = [qc.QuantRingReducer(pmesh.make_party_mesh(P, device=d), "2bit", n,
                                 threshold=0.5) for d in ("cpu", cuda_device)]
     before = two_bit.LAUNCHES["two_bit"]
     for _ in range(3):
