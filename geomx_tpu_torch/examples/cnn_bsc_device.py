@@ -18,6 +18,7 @@ or, single-process: ``--local``; ``--cpu`` runs on the CPU.
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import time
 
@@ -39,6 +40,10 @@ def main(argv=None):
                     help="accuracy-eval cadence (tr.leaves pays one "
                          "full-weight device->host transfer)")
     ap.add_argument("--max-iters", type=int, default=0)
+    ap.add_argument("--timed", type=int, default=0,
+                    help="after training, N more rounds through "
+                         "step_timed, each printed as a 'step_timed' JSON "
+                         "line (compute / d2h / wire / h2d / apply ms)")
     args = ap.parse_args(argv)
 
     import geomx_tpu_torch as gx
@@ -77,8 +82,10 @@ def main(argv=None):
     print(f"Start training on {num_all_workers} workers, my rank is "
           f"{my_rank}, on {device}.", flush=True)
     test_acc = 0.0
+    batch, done = None, False
     for epoch in range(args.epoch):
         for X, y in train_iter:
+            batch = (X, y)
             tr.step(X, y)
             # tr.leaves copies the full params to the host: eval on a
             # cadence, off the per-round path
@@ -88,9 +95,15 @@ def main(argv=None):
             print("[Time %.3f][Epoch %d][Iteration %d] Test Acc %.4f"
                   % (time.time() - begin, epoch, global_iters, test_acc),
                   flush=True)
-            if args.max_iters and global_iters >= args.max_iters:
-                return
+            done = bool(args.max_iters) and global_iters >= args.max_iters
+            if done:
+                break
             global_iters += 1
+        if done:
+            break
+    for _ in range(args.timed):
+        print("step_timed " + json.dumps(tr.step_timed(*batch)[1]),
+              flush=True)
 
 
 if __name__ == "__main__":

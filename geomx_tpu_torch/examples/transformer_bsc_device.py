@@ -20,6 +20,7 @@ pattern, so the loss curve is a real learning signal."""
 from __future__ import annotations
 
 import argparse
+import json
 import time
 from typing import Callable, Optional, Sequence, Union
 
@@ -98,6 +99,10 @@ def main(argv=None):
                     help="worker slice id; seeds this worker's data "
                          "stream; defaults to the kv rank")
     ap.add_argument("--max-iters", type=int, default=50)
+    ap.add_argument("--timed", type=int, default=0,
+                    help="after training, N more rounds through "
+                         "step_timed, each printed as a 'step_timed' JSON "
+                         "line (compute / d2h / wire / h2d / apply ms)")
     ap.add_argument("--local", action="store_true",
                     help="single-process local kvstore (no topology)")
     ap.add_argument("-c", "--cpu", action="store_true",
@@ -143,6 +148,10 @@ def main(argv=None):
                     / (time.time() - begin))
         print(f"[Time {time.time() - begin:.3f}][Iteration {it}] "
               f"Loss {loss:.4f} ({tokens_s:.0f} tok/s)", flush=True)
+    for _ in range(args.timed):
+        toks = synth_batch(rng, args.batch_size, args.seq_len, args.vocab)
+        print("step_timed " + json.dumps(tr.step_timed(toks, None)[1]),
+              flush=True)
 
 
 if __name__ == "__main__":

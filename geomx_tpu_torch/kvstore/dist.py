@@ -1911,11 +1911,18 @@ class KVStoreDist(KVStore):
         self.kvw.wait(ts, 120.0)
 
     def esync_state(self, tau_s: float, c_s: float) -> int:
-        """ESync's per-worker step count: its state server (esync.py) is
-        not ported yet."""
-        raise NotImplementedError(
-            "ESync's state server (esync.py) is not ported yet "
-            "(ROADMAP queue A item 4)")
+        """Report this worker's measured per-step compute time and sync
+        round-trip to the ESync state server (rank-0 local PS); returns
+        the assigned local step count M_i (geomx_tpu_torch.esync). The
+        body is JSON, so either package's server answers it."""
+        import json
+
+        ts = self.kvw.request(Command.ESYNC_STATE,
+                              json.dumps({"tau": tau_s, "c": c_s}),
+                              psbase.server_rank_to_id(0))
+        self.kvw.wait(ts, 120.0)
+        bodies = self.kvw.take_response_bodies(ts)
+        return int(bodies[0]) if bodies else 1
 
     def barrier(self, is_global: bool = False) -> None:
         if is_global:

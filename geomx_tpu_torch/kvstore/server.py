@@ -376,9 +376,12 @@ class KVStoreDistServer:
         # fine — all messages of one round carry the same round id, and
         # an overlapping round mislabels at most its neighbor's frames.
         self._wan_trace: Tuple[int, int] = (-1, -1)
-        # ESync state server (Command.ESYNC_STATE): geomx_tpu_torch.esync
-        # is not ported yet (ROADMAP queue A item 4); the command raises
-        self._esync = None
+        # ESync state server (Command.ESYNC_STATE; geomx_tpu_torch.esync) —
+        # constructed eagerly: lazy init would be a check-then-set race
+        # across per-connection reader threads
+        from geomx_tpu_torch.esync import ESyncStateServer
+
+        self._esync = ESyncStateServer()
         # global-server: party size per global-worker sender, for FSA round
         # counting + uniformity validation
         self._party_nsrv = 1
@@ -401,6 +404,7 @@ class KVStoreDistServer:
         # aggregation countdown, and esync's reporter window tracks the
         # same live view the countdowns use
         self.po_local.add_membership_listener(self._on_membership)
+        self._esync.live_fn = self.po_local.live_worker_ids
         self.server_local = KVServer(self.po_local)
         self.server_local.set_request_handle(
             lambda req, kvs, srv: self._handle(req, kvs, srv, global_tier=False))
@@ -1895,9 +1899,12 @@ class KVStoreDistServer:
             self._handle_global_barrier(req, srv)
             return
         if head == Command.ESYNC_STATE:
-            raise NotImplementedError(
-                "ESync's state server (esync.py) is not ported yet "
-                "(ROADMAP queue A item 4)")
+            # ESync state server (geomx_tpu_torch.esync): hosted on the
+            # party's rank-0 PS per the paper's co-located deployment;
+            # workers report (tau, c), the response body carries their next
+            # local step count
+            srv.response(req, body=self._esync.handle(body, req.sender))
+            return
         if head == Command.GET_OPTIMIZER_STATES:
             # the LIVE updater runs where updates apply: the GLOBAL tier in
             # HiPS (ApplyUpdates gate, reference kvstore_dist_server.h:512),

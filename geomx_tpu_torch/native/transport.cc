@@ -11,7 +11,8 @@
 //     boundaries (17-byte preheader | meta | u32 ndata | {u32 len|part}*)
 //     and enqueueing complete frames,
 //   - a bounded inbound frame queue drained by the host (Python) through
-//     gx_recv,
+//     gx_recv, each frame with the serial number of the connection it
+//     arrived on (a peer heard on a new connection dialled anew),
 //   - outbound connections dialed lazily per destination id and cached
 //     (reference: zmq_van.h:160-196 Connect caches per-id sockets),
 //   - eviction + single redial on send failure (peer restart recovery).
@@ -329,10 +330,12 @@ class Transport {
     return int64_t(len);
   }
 
-  // Pop one complete inbound frame. Returns:
+  // Pop one complete inbound frame and the serial number of the
+  // connection it arrived on (accepted connections count from 1).
+  // Returns:
   //   >=0 frame length (frame copied into *out, caller frees with gx_free)
   //   -1 timeout, -2 stopped.
-  int64_t Recv(uint8_t** out, double timeout_s) {
+  int64_t Recv(uint8_t** out, uint64_t* conn, double timeout_s) {
     std::unique_lock<std::mutex> lk(queue_mu_);
     auto pred = [this] { return !queue_.empty() || stopped_.load(); };
     if (timeout_s < 0) {
@@ -345,9 +348,11 @@ class Transport {
     if (queue_.empty()) return stopped_.load() ? -2 : -1;
     // allocate before dequeuing so an allocation failure doesn't lose
     // the frame — the caller can retry
-    uint8_t* buf = static_cast<uint8_t*>(::malloc(queue_.front().size()));
+    uint8_t* buf =
+        static_cast<uint8_t*>(::malloc(queue_.front().frame.size()));
     if (!buf) return -3;
-    std::string frame = std::move(queue_.front());
+    *conn = queue_.front().conn;
+    std::string frame = std::move(queue_.front().frame);
     queue_.pop_front();
     lk.unlock();
     std::memcpy(buf, frame.data(), frame.size());
@@ -372,17 +377,18 @@ class Transport {
       SetNoDelay(fd);
       std::lock_guard<std::mutex> lk(readers_mu_);
       reader_fds_.push_back(fd);
-      reader_threads_.emplace_back([this, fd] { ReaderLoop(fd); });
+      const uint64_t conn = ++conns_accepted_;
+      reader_threads_.emplace_back([this, fd, conn] { ReaderLoop(fd, conn); });
     }
   }
 
-  void ReaderLoop(int fd) {
+  void ReaderLoop(int fd, uint64_t conn) {
     std::string frame;
     while (!stopped_.load()) {
       if (!ReadFrame(fd, &frame)) break;
       recv_bytes_ += frame.size();
       std::lock_guard<std::mutex> lk(queue_mu_);
-      queue_.push_back(std::move(frame));
+      queue_.push_back(Inbound{conn, std::move(frame)});
       frame.clear();
       queue_cv_.notify_one();
     }
@@ -403,13 +409,18 @@ class Transport {
   std::mutex readers_mu_;
   std::vector<std::thread> reader_threads_;
   std::vector<int> reader_fds_;
+  uint64_t conns_accepted_ = 0;  // guarded by readers_mu_
 
   std::mutex routes_mu_;
   std::map<int, std::shared_ptr<Route>> routes_;
 
   std::mutex queue_mu_;
   std::condition_variable queue_cv_;
-  std::deque<std::string> queue_;
+  struct Inbound {
+    uint64_t conn;
+    std::string frame;
+  };
+  std::deque<Inbound> queue_;
 
   std::atomic<uint64_t> send_bytes_{0};
   std::atomic<uint64_t> recv_bytes_{0};
@@ -443,8 +454,8 @@ int64_t gx_send_addr(void* h, const char* host, int port, const uint8_t* buf,
   return static_cast<Transport*>(h)->SendToAddr(host, port, buf, size_t(len));
 }
 
-int64_t gx_recv(void* h, uint8_t** out, double timeout_s) {
-  return static_cast<Transport*>(h)->Recv(out, timeout_s);
+int64_t gx_recv(void* h, uint8_t** out, uint64_t* conn, double timeout_s) {
+  return static_cast<Transport*>(h)->Recv(out, conn, timeout_s);
 }
 
 void gx_free(uint8_t* buf) { ::free(buf); }

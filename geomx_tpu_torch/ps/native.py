@@ -1,7 +1,8 @@
 """ctypes bindings for the native (C++) transport core.
 
 The native core (``geomx_tpu_torch/native/transport.cc``, a copy of the
-JAX package's ``native/transport.cc``) is the C++ counterpart of the Python
+JAX package's ``native/transport.cc`` whose receive also reports the
+inbound connection each frame came on) is the C++ counterpart of the Python
 van's socket layer — the role ZMQVan plays in the reference
 (3rdparty/ps-lite/src/zmq_van.h:41-516). It owns the listener, per-
 connection frame-parsing reader threads, the inbound frame queue, and the
@@ -22,7 +23,7 @@ import logging
 import os
 import subprocess
 import threading
-from typing import Optional
+from typing import Optional, Tuple
 
 log = logging.getLogger("geomx.native")
 
@@ -92,6 +93,7 @@ def load_library() -> Optional[ctypes.CDLL]:
         lib.gx_recv.restype = ctypes.c_int64
         lib.gx_recv.argtypes = [ctypes.c_void_p,
                                 ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)),
+                                ctypes.POINTER(ctypes.c_uint64),
                                 ctypes.c_double]
         lib.gx_free.restype = None
         lib.gx_free.argtypes = [ctypes.POINTER(ctypes.c_uint8)]
@@ -153,10 +155,13 @@ class NativeTransport:
         if n < 0:
             raise OSError(f"native send to {host}:{port} failed")
 
-    def recv(self, timeout_s: float = 1.0) -> Optional[bytes]:
-        """One complete frame, or None on timeout; raises on shutdown."""
+    def recv(self, timeout_s: float = 1.0) -> Optional[Tuple[bytes, int]]:
+        """One complete frame and the serial number of the inbound
+        connection it came on, or None on timeout; raises on shutdown."""
         out = ctypes.POINTER(ctypes.c_uint8)()
-        n = self._lib.gx_recv(self._h, ctypes.byref(out), timeout_s)
+        conn = ctypes.c_uint64()
+        n = self._lib.gx_recv(self._h, ctypes.byref(out), ctypes.byref(conn),
+                              timeout_s)
         if n == -1:
             return None
         if n == -3:
@@ -165,7 +170,7 @@ class NativeTransport:
         if n < 0:
             raise ConnectionAbortedError("native transport stopped")
         try:
-            return ctypes.string_at(out, n)
+            return ctypes.string_at(out, n), conn.value
         finally:
             self._lib.gx_free(out)
 

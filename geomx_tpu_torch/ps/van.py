@@ -30,7 +30,7 @@ import random
 import socket
 import threading
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from geomx_tpu_torch import profiler, telemetry
 from geomx_tpu_torch.ps import base
@@ -46,6 +46,13 @@ from geomx_tpu_torch.ps.message import (Control, Message, Meta, Node, Role,
                                   read_message)
 
 log = logging.getLogger("geomx.van")
+
+# How long a failed send to a peer that has dialled this node anew waits
+# for the peer to move: a node that takes a dead slot (recovery) is
+# announced to every member by the scheduler's table broadcast, and its
+# first request can arrive before that broadcast does, so the answer to
+# it would go to the dead holder's address.
+ROUTE_CHANGE_WAIT_S = 5.0
 
 
 @locks.guarded_by("_member_lock", "my_id", "is_recovery",
@@ -229,6 +236,11 @@ class Van:
         # the PREVIOUS holder of the id carry an older epoch and are
         # rejected even after the revival removes the id from the dead set
         self._rejoin_epoch: Dict[int, int] = {}
+        # sender id -> the inbound connection its last frame came on, and
+        # the senders heard on a new connection since the last send to
+        # them went through (_heard_on; both under _stats_lock)
+        self._inbound_conn: Dict[int, Any] = {}
+        self._redialed: set = set()
         # owner hook fired (off the member lock) after every epoch change:
         # on_membership(epoch, dead_ids) — the Postoffice fans it out to
         # kvstore listeners (aggregation re-checks, esync pruning)
@@ -384,19 +396,19 @@ class Van:
         assert self._native is not None
         while not self.stopped.is_set():
             try:
-                buf = self._native.recv(timeout_s=0.5)
+                got = self._native.recv(timeout_s=0.5)
             except ConnectionAbortedError:
                 return
             except MemoryError:
                 log.error("native recv allocation failure; retrying")
                 time.sleep(0.1)
                 continue
-            if buf is None:
+            if got is None:
                 continue
-            with self._stats_lock:
-                self.recv_bytes += len(buf)
+            buf, conn = got
             try:
                 msg = Message.unpack(buf)
+                self._heard_on(msg.meta.sender, conn, len(buf))
                 if not self._inbound_gate(msg):
                     continue
                 self._process(msg)
@@ -739,11 +751,21 @@ class Van:
             # set_route is a no-op when unchanged; on an address change it
             # evicts the cached connection (peer recovered elsewhere)
             self._native.set_route(target, addr[0], addr[1])
-            n = self._native.send(target, buf)
-            with self._stats_lock:
-                self.send_bytes += n
+            try:
+                n = self._native.send(target, buf)
+            except OSError:
+                # a peer that dialled us anew may have re-registered at
+                # a new address that the table broadcast has not brought
+                # yet: resend once when it does
+                if not self._await_route_change(target, addr):
+                    raise
+                addr = self.node_table[target]
+                self._native.set_route(target, addr[0], addr[1])
+                n = self._native.send(target, buf)
+            self._sent_to(target, n)
             return n
         for attempt in (0, 1):
+            addr = self.node_table.get(target)
             conn = self._get_conn(target)
             if conn is None:
                 raise OSError(f"no route to node {target}")
@@ -751,16 +773,58 @@ class Van:
             try:
                 with lock:
                     sock.sendall(buf)
-                with self._stats_lock:
-                    self.send_bytes += len(buf)
+                self._sent_to(target, len(buf))
                 return len(buf)
             except OSError:
                 # evict the (possibly stale) cached connection and re-dial
-                # once — the peer may have restarted at a new address
+                # once — the peer may have restarted at a new address,
+                # which the table broadcast may still be bringing if the
+                # peer dialled us anew
                 self._evict_conn(target, sock)
                 if attempt == 1:
                     raise
+                self._await_route_change(target, addr)
         return 0
+
+    def _heard_on(self, sender: int, conn, nbytes: int) -> None:
+        """Count a frame of ``nbytes`` from ``sender`` that came on
+        inbound connection ``conn``. A sender heard on another connection
+        than its last frame's has dialled this node anew: a process that
+        took its slot (recovery) does so, and its first requests can come
+        before the table broadcast that gives its address."""
+        with self._stats_lock:
+            self.recv_bytes += nbytes
+            prev = self._inbound_conn.get(sender)
+            if prev != conn:
+                self._inbound_conn[sender] = conn
+                if prev is not None:
+                    self._redialed.add(sender)
+
+    def _sent_to(self, target: int, nbytes: int) -> None:
+        with self._stats_lock:
+            self.send_bytes += nbytes
+            self._redialed.discard(target)
+
+    def _await_route_change(self, target: int, old) -> bool:
+        """After a failed send to ``target`` at ``old``: if ``target``
+        has dialled this node anew since the last send to it that went
+        through (:meth:`_heard_on`), wait at most ROUTE_CHANGE_WAIT_S for
+        the table broadcast that moves it to another address, once per
+        such redial; True if it moved. Otherwise False at once: a send to
+        a peer that is gone, with no process in its slot, fails as
+        before."""
+        with self._stats_lock:
+            if target not in self._redialed:
+                return False
+            self._redialed.discard(target)
+        deadline = time.monotonic() + ROUTE_CHANGE_WAIT_S
+        while not self.stopped.is_set():
+            if self.node_table.get(target) not in (None, old):
+                return True
+            if time.monotonic() >= deadline:
+                return False
+            time.sleep(0.01)
+        return False
 
     def _evict_conn(self, target: int, sock: Optional[socket.socket] = None) -> None:
         with self._conn_lock:
@@ -834,8 +898,7 @@ class Van:
             if got is None:
                 break
             msg, nbytes = got
-            with self._stats_lock:
-                self.recv_bytes += nbytes
+            self._heard_on(msg.meta.sender, conn, nbytes)
             try:
                 if not self._inbound_gate(msg):
                     continue

@@ -53,7 +53,8 @@ class MixedHiPS(tsim.InProcessHiPS):
     """``InProcessHiPS`` whose roles come from either package: the
     schedulers from ``sched``, the servers of both tiers from
     ``server``, the party workers and the master from ``worker``. The
-    wiring mirrors ``geomx_tpu/simulate.py`` ``_start_once``."""
+    wiring mirrors ``geomx_tpu/simulate.py`` ``_start_once``;
+    ``extra_cfg`` reaches every node's Config, the schedulers' too."""
 
     def __init__(self, sched: str, server: str, worker: str, **kw):
         super().__init__(**kw)
@@ -66,6 +67,7 @@ class MixedHiPS(tsim.InProcessHiPS):
             num_global_workers=self.ngw, num_global_servers=self.ngs,
             num_parties=0, num_all_workers=self.num_all,
             enable_central_worker=False, bigarray_bound=self.bigarray_bound)
+        base.update(self.extra_cfg)
         base.update(kw)
         return self.kit[pkg_of].Config(**base)
 
@@ -73,7 +75,8 @@ class MixedHiPS(tsim.InProcessHiPS):
         k = self.kit["sched"]
         po = k.Postoffice(my_role=k.Role.SCHEDULER, is_global=is_global,
                           root_uri="127.0.0.1", root_port=root_port,
-                          num_workers=nw, num_servers=ns, cfg=k.Config())
+                          num_workers=nw, num_servers=ns,
+                          cfg=k.Config(**self.extra_cfg))
         po.start(60.0)
         po.barrier(k.psbase.ALL_GROUP, timeout=120.0)
         po.barrier(k.psbase.ALL_GROUP, timeout=600.0)

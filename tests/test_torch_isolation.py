@@ -49,6 +49,10 @@ def test_import_leaves_jax_out_of_the_process():
         "import geomx_tpu_torch.kvstore.device\n"
         "import geomx_tpu_torch.trainer\n"
         "import geomx_tpu_torch.models.mlp\n"
+        "import geomx_tpu_torch.esync\n"
+        "import geomx_tpu_torch.examples.cnn_esync\n"
+        "import geomx_tpu_torch.examples.cnn_bsc_device\n"
+        "import geomx_tpu_torch.kvstore_server\n"
         f"print(sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r}))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
@@ -104,6 +108,13 @@ def test_feature_config_without_cpu_flag_raises(name, no_cuda):
     mod = importlib.import_module(f"geomx_tpu_torch.examples.{name}")
     with pytest.raises(RuntimeError, match="CUDA"):
         mod.main(["--max-iters", "1"])
+
+
+def test_esync_example_without_cpu_flag_raises(no_cuda):
+    from geomx_tpu_torch.examples import cnn_esync
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cnn_esync.main(["-r", "1", "--local"])
 
 
 def test_example_runs_on_the_cpu_when_asked(capsys):
