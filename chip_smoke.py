@@ -17,7 +17,9 @@ projection), and times kernel, plain version,
 ``scaled_dot_product_attention`` (as a yardstick only) and the bound:
 back-to-back calls under CUDA events (the wrapper's host work included)
 and the device time per launch under ``torch.profiler``, each kernel and
-SDPA's forward and backward in a window of its own. Phase 2 trains the
+SDPA's forward and backward in a window of its own; ``phase1_d32``
+does the same at phase 8a's attention shape (B 4, H 8, T 512, D 32).
+Phase 2 trains the
 59M transformer (dim 512, depth 8, heads 8, vocab 32768, seq 512, batch
 8, bf16) through ``DeviceResidentTrainer`` on the local kv store and
 checks that every step went through the kernels, and a profiled round
@@ -107,6 +109,33 @@ the parties' accuracies identical. 7d runs ``run_p3.sh``,
 in lockstep, every process gone at the end, and the P3, inter-TS and
 MultiGPS runs ending on the same parameters.
 
+Phase 8 is long-context and sharded training (the JAX package's
+``train_transformer`` / ``train_moe`` flagship; a mesh's ranks share the
+card). 8a runs ``geomx_tpu_torch.examples.train_transformer`` at its
+defaults (dim 256, depth 4, heads 8, vocab 1024, seq 512, batch 8, bf16,
+AdamW at 3e-4, 20 steps) as one rank, as tp 2 with 2 microbatches, remat
+and a checkpoint every 10 steps (then a resume from step 10 that must
+give the same losses for steps 11-20), and as tp 2 x sp 2 (ring
+attention): falling losses, the whole loss curve within bf16 rounding
+of one rank's step by step (three planted faults, a wrong accumulation
+scale, a gradient of one microbatch, ring attention's softmax
+denominator without a gradient, must each fail that check), the flash
+launches per step as reckoned from depth, microbatches and remat, none
+of two_bit (phase 1 times the kernels at this attention shape, D 32,
+beside SDPA and the bound), median step ms. 8b holds ring attention (sp 4) and
+the flash kernels at B 2, H 8, D 32, T 4096, bf16, against fp32 dense
+attention, forward and q/k/v gradients, and times both. 8c runs
+``train_moe`` at its defaults with ep 1 and ep 2. 8d holds
+``FSDPTrainer`` on LeNet at dp 8 against ``DataParallelTrainer`` and
+the GPipe pipeline at pp 4, M 6 against its stages in sequence. To
+rehearse on the CPU: ``python -c "import numpy, torch, chip_smoke as c;
+from geomx_tpu_torch.ops import flash_attention as fa, two_bit as tb;
+c.TF8 = ['--dim', '32', '--depth', '2', '--heads', '4', '--vocab', '64',
+'--seq-len', '32', '--batch-size', '4']; c.MOE8 = c.TF8;
+c.PHASE8['ring']['T'] = 512; c.phase8a(torch, numpy, fa, tb, 'cpu');
+c.phase8b(torch, fa, 'cpu'); c.phase8c(torch, numpy, fa, 'cpu');
+c.phase8d(torch, numpy, 'cpu')"``.
+
 Exits non-zero without a card, outside a checkout, or when any check
 fails. The line before the last is the kernel table as JSON; the last is
 ``{"ok": true, "device": {...}}``.
@@ -125,6 +154,7 @@ import time
 from unittest import mock
 
 SLICE = dict(B=8, T=511, H=8, D=64)        # the transformer's attention
+D32 = dict(B=4, T=512, H=8, D=32)          # phase 8a's, per microbatch
 MODEL = dict(dim=512, depth=8, heads=8, vocab=32768, seq_len=512)
 BATCH, STEPS = 8, 5
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
@@ -189,6 +219,19 @@ PHASE7 = dict(lenet_rounds=200, timed=5, acc_last=0.0928 - 0.02,
               acc_peak=0.3135 - 0.1, tf_rounds=3, timed_tf=2, mesh_rounds=20,
               short=5, timeout_7a=300, timeout_7b=420, timeout_short=240)
 HIPS_ENV = "source geomx_tpu_torch/scripts/hips_env.sh"
+# phase 8: long-context and sharded training at the examples' defaults
+# (examples/train_transformer.py:30-49, examples/train_moe.py:27-44).
+# curve_tol: the 20-step loss curves of tp 2 with 2 microbatches and of
+# ring attention against one rank's, the largest relative gap of a step,
+# bf16 (PERF.md: the sound runs' and the planted faults' readings);
+# moe_tol: ep only records a layout, so ep 1 and ep 2 compute the same;
+# ring_tol: out, dq, dk, dv of bf16 ring attention and bf16 flash against
+# fp32 dense attention, as a share of the reference's largest magnitude
+PHASE8 = dict(iters=20, ckpt_every=10, curve_tol=3e-3, moe_tol=1e-6,
+              ring=dict(B=2, H=8, D=32, T=4096, sp=4),
+              ring_tol=(2e-2, 5e-2, 5e-2, 5e-2), fsdp_steps=10, pp=4, M=6)
+TF8 = []     # extra train_transformer flags (a CPU rehearsal's tiny model)
+MOE8 = []    # extra train_moe flags
 
 
 def fail(msg):
@@ -221,31 +264,85 @@ def time_ms(fn, reps, warmup=3):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps, match=None):
-    """Mean device ms per call of ``fn`` over ``reps`` calls in a
-    torch.profiler window of its own: the self device time of the kernels
-    it ran (those whose name holds ``match``, else all), summed, over
-    ``reps``. Returns (ms or None when the profiler saw no device time,
-    the kernels seen as "name xcount")."""
-    from torch.profiler import ProfilerActivity, profile
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel")   # + Ex, ExC
+PROFILE_TRIES = 3           # windows per reading before "not measured"
 
-    fn()
+
+def traced(torch, run):
+    """``run()`` once under ``torch.profiler`` after one warm-up call in
+    the same session (its events are dropped: a session's first
+    launches can go unrecorded). Returns (key_averages, wall ms of the
+    recorded call, what ``run`` returned)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        run()
         torch.cuda.synchronize()
-    total, seen = 0.0, []
-    for e in prof.key_averages():
-        if not str(e.device_type).endswith("CUDA") \
-                or e.self_device_time_total <= 0:
-            continue
-        if match is not None and match not in e.key:
-            continue
-        total += e.self_device_time_total
-        seen.append(f"{e.key[:70]} x{e.count}")
-    return (total / 1e3 / reps if total > 0 else None), seen
+        prof.step()
+        t = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+        prof.step()
+    return prof.key_averages(), wall, out
+
+
+def device_rows(events):
+    """(self device ms, count, name) of all the device did in ``events``:
+    kernels, copies and fills, not the spans that the profiler's steps
+    and the optimizer's annotations draw on the device's timeline."""
+    return [(e.self_device_time_total / 1e3, e.count, e.key) for e in events
+            if str(e.device_type).endswith("CUDA")
+            and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith(("ProfilerStep", "Optimizer."))]
+
+
+def kernel_rows(events):
+    """:func:`device_rows` without the copies and fills."""
+    return [r for r in device_rows(events)
+            if not r[2].startswith(("Memcpy", "Memset"))]
+
+
+def complete(events, expect=None, calls=1):
+    """Whether a traced window saw every launch: with ``expect`` ({kernel
+    name: launches per call}) each named kernel ran ``calls`` x its
+    count; without it, the device ran as many kernels as the host
+    launched (``cudaLaunchKernel*`` and ``cuLaunchKernel*`` calls, at
+    least one). Returns (ok, what was seen)."""
+    rows = kernel_rows(events)
+    if expect is not None:
+        seen = {k: sum(n for _ms, n, name in rows if k in name)
+                for k in expect}
+        return all(seen[k] == calls * n for k, n in expect.items()), seen
+    launched = sum(e.count for e in events
+                   if e.key.startswith(LAUNCH_CALLS))
+    ran = sum(n for _ms, n, _name in rows)
+    return launched > 0 and ran == launched, {"launched": launched,
+                                              "ran": ran}
+
+
+def device_ms(torch, fn, reps, expect=None, whole=False):
+    """Mean device ms per call of ``fn`` over ``reps`` calls in a
+    torch.profiler window (:func:`traced`): with ``expect`` ({kernel
+    name: launches per call}) the self device time of those kernels
+    (of every kernel with ``whole``), else of every kernel. It counts
+    only from a window that :func:`complete` finds whole, tried up to
+    ``PROFILE_TRIES`` times. Returns (ms, or None when not measured;
+    what the last window saw)."""
+    fn()
+    for _ in range(PROFILE_TRIES):
+        events, _wall, _ = traced(torch, lambda: [fn() for _ in range(reps)])
+        ok, seen = complete(events, expect, reps)
+        if ok:
+            rows = kernel_rows(events)
+            if expect is not None and not whole:
+                rows = [r for r in rows if any(k in r[2] for k in expect)]
+            return sum(r[0] for r in rows) / reps, seen
+    return None, seen
 
 
 def shown(ms):
@@ -419,7 +516,7 @@ def phase1(torch, fa):
     dev = {}
     for kname, (kern, _plain) in calls.items():
         dev[kname], seen = device_ms(torch, kern, PROFILE_REPS,
-                                     KERNELS[kname][2])
+                                     {KERNELS[kname][2]: 1})
         print(f"[phase1] device time {KERNELS[kname][0]}: "
               f"{shown(dev[kname])} ms per launch ({seen})", flush=True)
     out = sdpa()
@@ -442,6 +539,78 @@ def phase1(torch, fa):
               f"{bnd[kname][0]:.4f} ({bnd[kname][1]}: {bnd[kname][2]} bytes, "
               f"{bnd[kname][3]} flops)", flush=True)
     return errs, times, library, dev, library_dev, bnd
+
+
+def phase1_d32(torch, fa):
+    """The flash kernels at phase 8a's attention shape (``train_transformer``'s
+    defaults: B 4 per microbatch, H 8, T 512, D 32, bf16, causal; D 32
+    runs the tensor-core kernels padded to 32): each against its plain
+    version, then device time per launch beside SDPA's and the bound.
+    Returns {kernel: numbers} for the kernels line."""
+    B, T, H, D = D32["B"], D32["T"], D32["H"], D32["D"]
+    g = torch.Generator(device="cuda").manual_seed(32)
+    q, k, v, do = (torch.randn(B, T, H, D, device="cuda", generator=g)
+                   .to(torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_fwd(q, k, v, causal=True)
+    op, lp = fa.flash_fwd_plain(q, k, v, causal=True)
+    delta = (do.float() * op.float()).sum(-1).transpose(1, 2).contiguous()
+    got = {"fwd": [(o, op), (lse, lp)],
+           "dq": [(fa.flash_bwd_dq(q, k, v, do, lp, delta, causal=True),
+                   fa.flash_bwd_dq_plain(q, k, v, do, lp, delta,
+                                         causal=True))],
+           "dkv": list(zip(fa.flash_bwd_dkv(q, k, v, do, lp, delta,
+                                            causal=True),
+                           fa.flash_bwd_dkv_plain(q, k, v, do, lp, delta,
+                                                  causal=True)))}
+    out = {}
+    for kname, pairs in got.items():
+        err = 0.0
+        for a, b in pairs:
+            diff = (a.float() - b.float()).abs()
+            if bool((diff > TOL["bfloat16"] * (1 + b.float().abs())).any()):
+                fail(f"{kname} at D32's shape: beyond {TOL['bfloat16']} "
+                     f"(max abs err {diff.max().item()})")
+            err = max(err, diff.max().item())
+        out[kname] = {"max_abs_err": err}
+    calls = {
+        "fwd": lambda: fa.flash_fwd(q, k, v, causal=True),
+        "dq": lambda: fa.flash_bwd_dq(q, k, v, do, lp, delta, causal=True),
+        "dkv": lambda: fa.flash_bwd_dkv(q, k, v, do, lp, delta, causal=True),
+    }
+    F = torch.nn.functional
+    ql, kl, vl = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dol = do.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+
+    sdpa_out = sdpa()
+    lib_fwd, _ = device_ms(torch, sdpa, PROFILE_REPS)
+    lib_bwd, _ = device_ms(torch, lambda: torch.autograd.grad(
+        sdpa_out, (ql, kl, vl), dol, retain_graph=True), PROFILE_REPS)
+    # SDPA's backward (dQ, dK, dV in one call) as phase1 times it
+    lib_ms = time_ms(sdpa, 50)
+    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        sdpa(), (ql, kl, vl), dol), 50) - lib_ms
+    lib = {"fwd": (lib_ms, lib_fwd), "dq": (lib_bwd_ms, lib_bwd),
+           "dkv": (lib_bwd_ms, lib_bwd)}
+    bnd = bounds(B, T, T, H, D, True, "bfloat16")
+    for kname, fn in calls.items():
+        dev, _ = device_ms(torch, fn, PROFILE_REPS, {KERNELS[kname][2]: 1})
+        out[kname].update(
+            device_ms=dev, kernel_ms=time_ms(fn, 50), bound_ms=bnd[kname][0],
+            bound_by=bnd[kname][1], library_ms=lib[kname][0],
+            library_device_ms=lib[kname][1])
+        r = out[kname]
+        print(f"[phase1] {KERNELS[kname][0]} at B{B} T{T} H{H} D{D} bf16 "
+              f"causal: max_abs_err {r['max_abs_err']:.3e} kernel_ms "
+              f"{r['kernel_ms']:.4f} device_ms {shown(dev)} library_ms "
+              f"{shown(lib[kname][0])} library_device_ms "
+              f"{shown(lib[kname][1])} bound_ms {bnd[kname][0]:.4f} "
+              f"({bnd[kname][1]}: {bnd[kname][2]} bytes, {bnd[kname][3]} "
+              f"flops)", flush=True)
+    return out
 
 
 def phase2(torch, np, fa):
@@ -530,7 +699,7 @@ def profile_round(torch, run, tag, tc_launches):
         t = time.perf_counter()
         phases = run()
         wall = (time.perf_counter() - t) * 1e3
-    counts = profile_summary(prof, wall, phases, tag)
+    counts = profile_summary(prof.key_averages(), wall, phases, tag)
     for tc in TC_KERNELS:
         if counts is not None and counts[tc] != tc_launches:
             fail(f"{tag}: {tc} ran {counts[tc]} times in the round, "
@@ -538,14 +707,11 @@ def profile_round(torch, run, tag, tc_launches):
                  "tensor-core kernels")
 
 
-def profile_summary(prof, wall, phases, tag):
+def profile_summary(events, wall, phases, tag):
     """Print a profiled round's device busy share and largest kernels;
     returns the launches of each tensor-core flash kernel (None when the
     profiler saw no device time)."""
-    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                   for e in prof.key_averages()
-                   if str(e.device_type).endswith("CUDA")
-                   and e.self_device_time_total > 0), reverse=True)
+    rows = sorted(device_rows(events), reverse=True)
     busy = sum(r[0] for r in rows)
     if not rows:
         print(f"[{tag}] device time not measured: the profiler saw no "
@@ -616,7 +782,8 @@ def phase3a(torch, tb, pmesh, n_params):
                                 out_residual=out[:, 1])
 
         ms = time_ms(kernel, 50)
-        dev, _ = device_ms(torch, kernel, PROFILE_REPS, "two_bit_kernel")
+        dev, _ = device_ms(torch, kernel, PROFILE_REPS,
+                           {"two_bit_kernel": 1})
         plain = time_ms(lambda: tb.two_bit_quantize_plain(
             grad, res[:, 1], PARTY_THRESHOLD), 10)
         bnd, nbytes = two_bit_bound(P * m)
@@ -1136,8 +1303,8 @@ def phase4b(torch, np, fa, tb):
               f"{HIPS_TF['timed']} rounds (ms), pipelined "
               f"{medians(res[w]['on'])}, serial {medians(res[w]['off'])}",
               flush=True)
-    tc = profile_summary(prof["p"], prof["wall"], prof["phases"],
-                         "phase4b profile")
+    tc = profile_summary(prof["p"].key_averages(), prof["wall"],
+                         prof["phases"], "phase4b profile")
     for w in (0, 1):
         l = res[w]["losses"]
         if not all(math.isfinite(x) for x in l):
@@ -1785,8 +1952,8 @@ def phase6b(torch, np, fa, tb, dev="cuda"):
           flush=True)
     tc = None
     if dev == "cuda":
-        tc = profile_summary(prof["p"], prof["wall"], prof["phases"],
-                             "phase6b profile")
+        tc = profile_summary(prof["p"].key_averages(), prof["wall"],
+                             prof["phases"], "phase6b profile")
     for w in (0, 1):
         if not all(math.isfinite(x) for x in
                    [res[w]["warmup"]] + res[w]["losses"]):
@@ -2296,6 +2463,378 @@ def phase7d(dev):
              "parameters across P3, inter-TS and MultiGPS")
 
 
+def curve_gap(losses, ref):
+    """The largest relative gap between two loss curves, step by step."""
+    return max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+
+
+def plants8():
+    """Faults planted for one ``train_transformer`` run each, that the
+    loss-curve check of phase 8a must catch: (name, flags, module,
+    attribute, replacement). None changes the step-1 loss but the first."""
+    from geomx_tpu_torch.parallel import grad_accum
+    from geomx_tpu_torch.parallel import ring_attention as ra
+
+    accumulate, block = grad_accum.accumulate_gradients, ra._block_attn
+
+    def summed(grad_fn, n, **kw):
+        fn = accumulate(grad_fn, n, **kw)
+
+        def run(params, *batch):
+            loss, grads = fn(params, *batch)
+            return loss * n, [g * n for g in grads]
+
+        return run
+
+    def first_only(grad_fn, n, **kw):
+        fn = accumulate(grad_fn, n, **kw)
+
+        def run(params, *batch):
+            loss, _ = fn(params, *batch)
+            mb = batch[0].shape[0] // n
+            return loss, grad_fn(params, *(a[:mb] for a in batch))[1]
+
+        return run
+
+    def row_sum_detached(q, k, v, mask):
+        m, o, l = block(q, k, v, mask)
+        return m, o, l.detach()
+
+    mb = ["--tp", "2", "--microbatches", "2", "--remat"]
+    return [
+        ("microbatches summed, not averaged", mb, grad_accum,
+         "accumulate_gradients", summed),
+        ("the mean loss, the first microbatch's gradient only", mb,
+         grad_accum, "accumulate_gradients", first_only),
+        ("ring attention's softmax row-sum detached", ["--tp", "2", "--sp",
+                                                       "2"], ra,
+         "_block_attn", row_sum_detached)]
+
+
+def phase8a(torch, np, fa, tb, dev="cuda"):
+    """``train_transformer`` at its defaults in three configurations: one
+    rank; tp 2 with 2 microbatches, remat and checkpoints every 10 steps,
+    then a resume from step 10 that must reproduce steps 11-20; tp 2 x sp
+    2 (ring attention). Finite losses that fall, the whole loss curve
+    within ``curve_tol`` of configuration 1's step by step, flash
+    launches per step as reckoned (on the CPU attention is dense: none),
+    none of ``two_bit``. Then each fault of :func:`plants8` once: the
+    curve check must reject it. Returns the launch counts (total by
+    kernel, and per step by configuration)."""
+    import tempfile
+
+    from geomx_tpu_torch.examples import train_transformer as ex
+
+    iters, depth = PHASE8["iters"], int(tf8_depth())
+    ckpt = tempfile.mkdtemp(prefix="phase8a-")
+    mb = 2
+    configs = {
+        "1": ([], (depth, depth, depth)),
+        "2": (["--tp", "2", "--microbatches", str(mb), "--remat",
+               "--ckpt-dir", ckpt, "--ckpt-every", str(PHASE8["ckpt_every"])],
+              # per microbatch: the forward twice (remat reruns it in the
+              # backward), dQ and dK/dV once, per block
+              (mb * 2 * depth, mb * depth, mb * depth)),
+        "3": (["--tp", "2", "--sp", "2"], (0, 0, 0)),
+    }
+    cpu = ["--cpu"] if dev == "cpu" else []
+    counters = [fa.LAUNCHES, tb.LAUNCHES]
+    total = {k: 0 for c in counters for k in c}
+
+    def counted(argv):
+        reset(counters)
+        res = ex.main(argv)
+        counts = {k: v for c in counters for k, v in c.items()}
+        for k in total:
+            total[k] += counts[k]
+        return res, counts
+
+    per_step, results = {}, {}
+    try:
+        for name, (flags, reckoned) in configs.items():
+            argv = TF8 + flags + ["--max-iters", str(iters)] + cpu
+            res, counts = counted(argv)
+            want = dict(zip(("fwd", "dq", "dkv"), reckoned)) if dev == "cuda" \
+                else {k: 0 for k in fa.LAUNCHES}
+            want["two_bit"] = 0
+            per_step[name] = {k: counts[k] / iters for k in counts}
+            losses = res["losses"]
+            print(f"[phase8a] config {name} {flags}: losses {losses}",
+                  flush=True)
+            print(f"[phase8a] config {name}: step-1 loss {losses[0]!r}, last "
+                  f"{losses[-1]!r}, median step ms "
+                  f"{statistics.median(res['step_ms']):.3f} (first "
+                  f"{res['step_ms'][0]:.1f}), launches per step "
+                  f"{per_step[name]} (reckoned {want})", flush=True)
+            if not all(math.isfinite(x) for x in losses) \
+                    or not losses[-1] < losses[0]:
+                fail(f"phase 8a config {name}: losses {losses}")
+            if counts != {k: v * iters for k, v in want.items()}:
+                fail(f"phase 8a config {name}: launches {counts} in "
+                     f"{iters} steps, reckoned {want} per step")
+            results[name] = res
+            if dev == "cuda":
+                profile_step(torch, ex, argv, f"phase8a-{name}",
+                             dict(zip(("fwd", "dq", "dkv"), reckoned)))
+        ref = results["1"]["losses"]
+        for name, res in results.items():
+            gap = curve_gap(res["losses"], ref)
+            print(f"[phase8a] config {name}: loss curve vs config 1, largest "
+                  f"relative gap {gap:.3e} (tolerance {PHASE8['curve_tol']}"
+                  f"); step 1 {abs(res['losses'][0] - ref[0]) / ref[0]:.3e}",
+                  flush=True)
+            if gap > PHASE8["curve_tol"]:
+                fail(f"phase 8a config {name}: loss curve {res['losses']} "
+                     f"off config 1's {ref} by up to {gap}")
+        # resume: drop the last checkpoint, rerun from step 10
+        last = os.path.join(ckpt, str(iters))
+        if not os.path.isfile(os.path.join(last, "checkpoint.gxck")):
+            fail(f"phase 8a: no checkpoint of step {iters} in {ckpt}")
+        shutil.rmtree(last)
+        res, _ = counted(TF8 + configs["2"][0] + ["--max-iters", str(iters)]
+                         + cpu)
+        want = results["2"]["losses"][PHASE8["ckpt_every"]:]
+        diff = max(abs(a - b) for a, b in zip(res["losses"], want))
+        print(f"[phase8a] resume from step {res['start'] - 1}: losses "
+              f"{res['losses']}; the uninterrupted run's {want}; max abs "
+              f"diff {diff!r}", flush=True)
+        if res["start"] != PHASE8["ckpt_every"] + 1 or res["losses"] != want:
+            fail(f"phase 8a: the resumed run's losses differ from the "
+                 f"uninterrupted run's by up to {diff}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    # the check's power: each planted fault must fail it (not counted)
+    for what, flags, module, attr, planted in plants8():
+        with mock.patch.object(module, attr, planted):
+            res = ex.main(TF8 + flags + ["--max-iters", str(iters)] + cpu)
+        gap = curve_gap(res["losses"], ref)
+        step1 = abs(res["losses"][0] - ref[0]) / ref[0]
+        print(f"[phase8a] planted fault ({what}; {flags}): losses "
+              f"{res['losses']}; largest relative gap to config 1 "
+              f"{gap:.3e}; step 1 {step1:.3e}", flush=True)
+        if not gap > PHASE8["curve_tol"]:
+            fail(f"phase 8a: the loss-curve check passes a planted fault "
+                 f"({what}): gap {gap}")
+    return total, per_step
+
+
+def profile_step(torch, ex, argv, tag, per_step):
+    """Where a ``train_transformer`` step's time goes: the example's own
+    step built anew, two warm-up steps, one traced (:func:`traced`): the
+    device's busy share of the step's wall time, its largest kernels.
+    Read only from a window that holds the step's flash launches as
+    reckoned (``per_step``, {launch key: count}) and every launch the
+    host made (:func:`complete`); else "not measured"."""
+    run = ex.build(ex.parse_args(argv), torch.device("cuda"))
+    for _ in range(2):
+        float(run["step"]())
+    expect = {KERNELS[k][2]: n for k, n in per_step.items()}
+    for _ in range(PROFILE_TRIES):
+        events, wall, _ = traced(torch, lambda: float(run["step"]()))
+        ok, seen = complete(events, expect)
+        ok_all, seen_all = complete(events)
+        if ok and ok_all:
+            profile_summary(events, wall, {}, tag)
+            return
+    print(f"[{tag}] device time not measured: the last of "
+          f"{PROFILE_TRIES} traced steps held flash launches {seen} "
+          f"(reckoned {expect}) and kernels {seen_all}", flush=True)
+
+
+def tf8_depth():
+    """The depth phase 8a's model runs at (the example's default unless
+    ``TF8`` sets one)."""
+    return TF8[TF8.index("--depth") + 1] if "--depth" in TF8 else 4
+
+
+def rel_close(got, want, tol):
+    """(max abs error, max |want|, ok): every element within
+    ``tol * max|want|`` of the fp32 reference."""
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    return err, scale, err <= tol * scale
+
+
+def phase8b(torch, fa, dev="cuda"):
+    """Ring attention where it matters: B 2, H 8, D 32, T 4096 over sp 4,
+    bf16, causal. Ring attention's and the flash kernels' forward and
+    q/k/v gradients against fp32 dense attention on the same (bf16)
+    values, and the device time of both (CUDA events around back-to-back
+    calls, and the profiler's from a window that saw every launch)."""
+    from geomx_tpu_torch.models.transformer import dense_attention
+    from geomx_tpu_torch.parallel.mesh import make_mesh
+    from geomx_tpu_torch.parallel.ring_attention import make_ring_attention
+
+    c = PHASE8["ring"]
+    B, T, H, D, sp = c["B"], c["T"], c["H"], c["D"], c["sp"]
+    g = torch.Generator(device=dev).manual_seed(88)
+    q, k, v, do = (torch.randn(B, T, H, D, device=dev, generator=g)
+                   .to(torch.bfloat16) for _ in range(4))
+    ring = make_ring_attention(make_mesh(sp, sp=sp, device=dev), causal=True)
+
+    def flash(q, k, v):
+        return fa.flash_attention(q, k, v, causal=True)
+
+    def dense32(q, k, v):
+        return dense_attention(q, k, v, causal=True)
+
+    def fwd_bwd(fn, dtype):
+        xs = [x.to(dtype).requires_grad_() for x in (q, k, v)]
+        out = fn(*xs)
+        return [out.detach()] + list(torch.autograd.grad(out, xs,
+                                                         do.to(dtype)))
+
+    ref = fwd_bwd(dense32, torch.float32)
+    times = {}
+    for name, fn in (("ring", ring), ("flash", flash)):
+        got = fwd_bwd(fn, torch.bfloat16)
+        for what, a, b, tol in zip(("out", "dq", "dk", "dv"), got, ref,
+                                   PHASE8["ring_tol"]):
+            err, scale, ok = rel_close(a, b, tol)
+            print(f"[phase8b] {name} {what} vs fp32 dense: max abs err "
+                  f"{err:.4e} (max |ref| {scale:.4e}, tolerance {tol} x "
+                  f"max |ref|)", flush=True)
+            if not bool(torch.isfinite(a).all()) or not ok:
+                fail(f"phase 8b: {name} {what} max abs err {err} beyond "
+                     f"{tol} x {scale}")
+        if dev == "cuda":
+            # CUDA events over back-to-back calls (host work included)
+            # beside the profiler's device time, which a session can miss
+            xs = [x.clone().requires_grad_() for x in (q, k, v)]
+
+            def fwd():
+                return fn(q, k, v)
+
+            def fwd_bwd_call():
+                return torch.autograd.grad(fn(*xs), xs, do)
+
+            # the profiler's reading counts only from a whole window:
+            # flash's launches as reckoned, or as many kernels as launched
+            fl = (None, None) if name == "ring" else (
+                {KERNELS["fwd"][2]: 1},
+                {KERNELS[k][2]: 1 for k in ("fwd", "dq", "dkv")})
+            times[name] = [time_ms(fwd, 10), time_ms(fwd_bwd_call, 10),
+                           device_ms(torch, fwd, 5, fl[0], whole=True)[0],
+                           device_ms(torch, fwd_bwd_call, 5, fl[1],
+                                     whole=True)[0]]
+            print(f"[phase8b] {name} at B{B} T{T} H{H} D{D} bf16 causal"
+                  f"{' sp ' + str(sp) if name == 'ring' else ''}: event ms "
+                  f"forward {times[name][0]:.4f}, forward+backward "
+                  f"{times[name][1]:.4f}; device ms forward "
+                  f"{shown(times[name][2])}, forward+backward "
+                  f"{shown(times[name][3])}", flush=True)
+    return times
+
+
+def phase8c(torch, np, fa, dev="cuda"):
+    """``train_moe`` at its defaults, ep 1 and ep 2: step-1 losses agree,
+    the aux loss is finite, the CE falls; dense attention, so no flash
+    launch."""
+    from geomx_tpu_torch.examples import train_moe
+
+    runs = {}
+    for ep in (1, 2):
+        reset([fa.LAUNCHES])
+        argv = MOE8 + ["--ep", str(ep), "--max-iters",
+                       str(PHASE8["iters"])] + (["--cpu"] if dev == "cpu"
+                                                else [])
+        res = train_moe.main(argv)
+        runs[ep] = res
+        print(f"[phase8c] ep {ep}: ce {res['ce']}", flush=True)
+        print(f"[phase8c] ep {ep}: aux {res['aux']}; median step ms "
+              f"{statistics.median(res['step_ms']):.3f}; flash launches "
+              f"{dict(fa.LAUNCHES)}", flush=True)
+        if not all(math.isfinite(x) for x in res["ce"] + res["aux"]) \
+                or not res["ce"][-1] < res["ce"][0]:
+            fail(f"phase 8c ep {ep}: ce {res['ce']}, aux {res['aux']}")
+        if any(fa.LAUNCHES.values()):
+            fail(f"phase 8c: flash launches {fa.LAUNCHES} on a dense path")
+    a, b = runs[1]["ce"][0], runs[2]["ce"][0]
+    rel = abs(a - b) / abs(a)
+    print(f"[phase8c] step-1 ce ep 1 {a!r}, ep 2 {b!r}: rel diff {rel:.3e}",
+          flush=True)
+    if rel > PHASE8["moe_tol"]:
+        fail(f"phase 8c: step-1 ce differs between ep 1 and ep 2 by {rel}")
+
+
+def phase8d(torch, np, dev="cuda"):
+    """FSDP on LeNet at dp 8 against ``DataParallelTrainer`` (10 steps,
+    within 2e-4; shard fraction below 0.6), and the GPipe pipeline at pp
+    4, M 6 against the stages applied in sequence (fp32, outputs and
+    gradients within 1e-5)."""
+    import copy
+    import functools
+
+    from geomx_tpu_torch._device import exact_cudnn
+    from geomx_tpu_torch.io import load_data
+    from geomx_tpu_torch.models import create_cnn
+    from geomx_tpu_torch.parallel.fsdp import FSDPTrainer
+    from geomx_tpu_torch.parallel.mesh import make_mesh
+    from geomx_tpu_torch.parallel.pipeline import make_pipeline_fn
+    from geomx_tpu_torch.parallel.train_step import DataParallelTrainer
+
+    if dev == "cuda":
+        exact_cudnn()
+    mesh = make_mesh(8, device=dev)
+    model = create_cnn()
+    replica = copy.deepcopy(model)
+    fsdp = FSDPTrainer(model, functools.partial(torch.optim.Adam, lr=3e-3),
+                       mesh)
+    repl = DataParallelTrainer(replica, torch.optim.Adam(
+        replica.parameters(), lr=3e-3), mesh)
+    frac = fsdp.param_shard_fraction()
+    train_iter, _, _, _ = load_data(64, num_workers=1)
+    l_f, l_r = [], []
+    for i, (X, y) in enumerate(train_iter):
+        l_f.append(fsdp.step(X, y))
+        l_r.append(repl.step(X, y))
+        if i + 1 >= PHASE8["fsdp_steps"]:
+            break
+    diff = max(abs(a - b) for a, b in zip(l_f, l_r))
+    print(f"[phase8d] FSDP dp 8 losses {l_f}; DataParallelTrainer {l_r}; "
+          f"max abs diff {diff:.3e}; param_shard_fraction {frac:.4f}",
+          flush=True)
+    if frac >= 0.6 or not np.allclose(l_f, l_r, rtol=2e-4, atol=2e-4) \
+            or not l_f[-1] < l_f[0]:
+        fail(f"phase 8d: FSDP losses {l_f} vs DP {l_r}, fraction {frac}")
+
+    S, M, mb, Dp = PHASE8["pp"], PHASE8["M"], 16, 256
+    g = torch.Generator(device=dev).manual_seed(84)
+    w = (0.1 * torch.randn(S, Dp, Dp, device=dev, generator=g))
+    b = 0.1 * torch.randn(S, Dp, device=dev, generator=g)
+    x = torch.randn(M, mb, Dp, device=dev, generator=g)
+
+    def stage(params, h):
+        sw, sb = params
+        return torch.tanh(h @ sw + sb)
+
+    def sequential(params, x_mb):
+        sw, sb = params
+        outs = []
+        for m in range(x_mb.shape[0]):
+            h = x_mb[m]
+            for s in range(sw.shape[0]):
+                h = stage((sw[s], sb[s]), h)
+            outs.append(h)
+        return torch.stack(outs)
+
+    pipe = make_pipeline_fn(make_mesh(S, pp=S, device=dev), stage)
+    res = {}
+    for name, fn in (("pipeline", pipe), ("sequential", sequential)):
+        pw, pb = (t.clone().requires_grad_() for t in (w, b))
+        out = fn((pw, pb), x)
+        grads = torch.autograd.grad((out * torch.cos(out)).sum(), (pw, pb))
+        res[name] = [out.detach()] + list(grads)
+    for what, a, c in zip(("out", "dw", "db"), res["pipeline"],
+                          res["sequential"]):
+        err = (a - c).abs().max().item()
+        print(f"[phase8d] pipeline pp {S} M {M} {what} vs sequential: max "
+              f"abs err {err:.3e} (max |ref| {c.abs().max().item():.3e})",
+              flush=True)
+        if not bool(((a - c).abs() <= 1e-5 * (1 + c.abs())).all()):
+            fail(f"phase 8d: pipeline {what} off by {err}")
+
+
 def main():
     try:
         import torch
@@ -2351,6 +2890,7 @@ def main():
         clock[0] = now
 
     errs, times, library, dev, library_dev, bnd = phase1(torch, fa)
+    d32 = phase1_d32(torch, fa)
     lap("phase1")
     _launches, n_params = phase2(torch, np, fa)
     lap("phase2")
@@ -2379,6 +2919,14 @@ def main():
     lap("phase7c")
     phase7d("cuda")
     lap("phase7d")
+    launches8, per_step8 = phase8a(torch, np, fa, tb)
+    lap("phase8a")
+    phase8b(torch, fa)
+    lap("phase8b")
+    phase8c(torch, np, fa)
+    lap("phase8c")
+    phase8d(torch, np)
+    lap("phase8d")
 
     table = [{
         "name": name, "route": "cuda", "source": SOURCE, "replaces": where,
@@ -2394,7 +2942,9 @@ def main():
             **{f"6a-{c}": r["launches"][key]
                for c, r in mesh6a["runs"].items()},
             "6b_per_round": mesh6b[key], "7b": procs7b[key],
-            "7c": procs7c[key]},
+            "7c": procs7c[key], "8a": launches8[key],
+            "8a_per_step": {c: n[key] for c, n in per_step8.items()}},
+        "d32": d32[key],
     } for key, (name, where, kernel) in KERNELS.items()]
     table.append({
         "name": TWO_BIT[0], "route": "cuda", "source": TWO_BIT[1],
@@ -2409,7 +2959,7 @@ def main():
             **{f"6a-{c}": r["launches"]["two_bit"]
                for c, r in mesh6a["runs"].items()},
             "6b_per_round": mesh6b["two_bit"], "7b": procs7b["two_bit"],
-            "7c": procs7c["two_bit"]}})
+            "7c": procs7c["two_bit"], "8a": launches8["two_bit"]}})
     print(card, flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

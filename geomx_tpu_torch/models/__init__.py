@@ -1,7 +1,10 @@
-"""geomx_tpu_torch.models — the port's model zoo (so far LeNet, the MLP
-and the transformer)."""
+"""geomx_tpu_torch.models — the port's model zoo (so far LeNet, the MLP,
+the transformer and its MoE block)."""
 
 from geomx_tpu_torch.models.cnn import LeNetCNN, create_cnn  # noqa: F401
 from geomx_tpu_torch.models.mlp import MLP  # noqa: F401
+from geomx_tpu_torch.models.moe import (  # noqa: F401
+    MoEBlock, moe_param_sharding)
 from geomx_tpu_torch.models.transformer import (  # noqa: F401
-    Block, Transformer, dense_attention, make_attention)
+    Block, Transformer, dense_attention, make_attention,
+    transformer_param_sharding)

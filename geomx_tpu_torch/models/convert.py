@@ -3,10 +3,13 @@
 The JAX package hands parameters around as the leaf list of
 ``jax.tree_util.tree_flatten(params)``: dictionary keys sorted at every
 level (so ``block10`` sorts before ``block2``), Dense kernels ``[in,
-out]``, conv kernels HWIO. The transformer and the MLP
-(``models/mlp.py``) keep flax's names and layouts, so their leaf order
-is the sorted order of their dotted parameter names split at the dots,
-and the arrays move across unchanged. LeNet is
+out]``, conv kernels HWIO. The transformer (its MoE blocks included:
+``block{i}/moe/{b_dn, b_up, ln, router, w_dn, w_up}``, so ``moe/b_dn``
+sorts before ``moe/ln``, the expert-stacked ``[E, D, H]`` / ``[E, H,
+D]`` leaves as they are) and the MLP (``models/mlp.py``) keep flax's
+names and layouts, so their leaf order is the sorted order of their
+dotted parameter names split at the dots, and the arrays move across
+unchanged. LeNet is
 torch-native (OIHW convs, ``[out, in]`` linears) and maps through
 :data:`LENET_LEAVES`.
 """

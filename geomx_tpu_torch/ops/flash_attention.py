@@ -42,7 +42,7 @@ from geomx_tpu_torch.ops import _cuda
 
 __all__ = ["LAUNCHES", "flash_attention", "flash_fwd", "flash_bwd_dq",
            "flash_bwd_dkv", "flash_fwd_plain", "flash_bwd_dq_plain",
-           "flash_bwd_dkv_plain", "route"]
+           "flash_bwd_dkv_plain", "make_sharded_flash_attention", "route"]
 
 # kernel launches since the last reset, by kernel (the plain versions
 # do not count)
@@ -439,3 +439,35 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
     blocking; the kernels tile by 64."""
     _check(q, k, v, causal)
     return _FlashAttention.apply(q, k, v, causal, block_q, block_k)
+
+
+def make_sharded_flash_attention(mesh, *, causal: bool = True,
+                                 block_q: int = 128, block_k: int = 128):
+    """:func:`flash_attention` over ``mesh``'s dp/tp layout (JAX
+    ``ops/flash_attention.py:351-376``).
+
+    The JAX package runs the Pallas kernels per shard under shard_map,
+    batch over "dp" and heads over "tp". Attention is independent per
+    batch and head, and the port's ranks share one card
+    (:mod:`geomx_tpu_torch.parallel.mesh`), so each kernel is launched
+    once over the whole ``[B, T, H, D]`` — one launch where the JAX
+    package launches one per shard (ROADMAP queue C). The layout is
+    still checked: B must divide by dp and H by tp, as shard_map
+    requires. Sequence-sharded meshes ("sp" > 1) need ring attention
+    instead and are rejected."""
+    from geomx_tpu_torch.parallel.mesh import check_divisible
+
+    if "sp" in mesh.axis_names and mesh.shape["sp"] > 1:
+        raise ValueError(
+            "flash attention cannot shard the sequence axis; "
+            "use parallel.make_ring_attention for sp > 1")
+    spec = ("dp" if "dp" in mesh.axis_names else None, None,
+            "tp" if "tp" in mesh.axis_names else None, None)
+
+    def fn(q, k, v):
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            check_divisible(mesh, spec, x.shape, f"flash attention's {name}")
+        return flash_attention(q, k, v, causal=causal, block_q=block_q,
+                               block_k=block_k)
+
+    return fn

@@ -1,16 +1,26 @@
-"""geomx_tpu_torch.parallel — the intra-party tier.
+"""geomx_tpu_torch.parallel — device-mesh parallelism.
 
-Counterpart of ``geomx_tpu/parallel``. Ported so far: the party mesh,
-its placements and the ring helpers (``mesh``), the quantized ring
-all-reduce (``quant_collectives``), ``DataParallelTrainer`` and
-``HierarchicalTrainer`` (``train_step``).
-FSDP, pipeline, gradient accumulation and ring attention are still to
-port (ROADMAP queue A item 10).
+Counterpart of ``geomx_tpu/parallel``: the named-axis mesh and the party
+mesh with their placements and ring helpers (``mesh``), the quantized
+ring all-reduce (``quant_collectives``), ``DataParallelTrainer`` and
+``HierarchicalTrainer`` (``train_step``), ring attention over "sp"
+(``ring_attention``), gradient accumulation (``grad_accum``), the GPipe
+pipeline over "pp" (``pipeline``) and FSDP over "dp" (``fsdp``). Every
+rank of a mesh shares one card (see ``mesh``); a mesh over several
+cards is not ported yet (ROADMAP queue A item 9).
 """
 
 from geomx_tpu_torch.parallel.mesh import (  # noqa: F401
-    PartyMesh, make_party_mesh, party_devices, ring_chunk_layout, ring_perm)
+    Mesh, PartyMesh, Sharded, make_mesh, make_party_mesh, mesh_shape_for,
+    party_devices, ring_chunk_layout, ring_perm, shard)
 from geomx_tpu_torch.parallel.quant_collectives import (  # noqa: F401
     QuantRingReducer, make_quant_all_reduce, ring_all_reduce)
 from geomx_tpu_torch.parallel.train_step import (  # noqa: F401
     DataParallelTrainer, HierarchicalTrainer)
+from geomx_tpu_torch.parallel.ring_attention import (  # noqa: F401
+    make_ring_attention)
+from geomx_tpu_torch.parallel.grad_accum import (  # noqa: F401
+    accumulate_gradients)
+from geomx_tpu_torch.parallel.pipeline import make_pipeline_fn  # noqa: F401
+from geomx_tpu_torch.parallel.fsdp import (  # noqa: F401
+    FSDPTrainer, fsdp_shardings, fsdp_spec)

@@ -1,18 +1,24 @@
-"""The party mesh and the ring helpers of the intra-party tier.
+"""Meshes, placements and the ring helpers.
 
-Counterpart of the part of ``geomx_tpu/parallel/mesh.py`` that the
-intra-party tier needs: ``ring_perm``, ``ring_chunk_layout``,
-``party_devices``, the party mesh (``make_party_mesh``) and the two
-placements of the mesh-party store, ``replicated`` and
-``batch_sharded``. A party is the ranks of the "dp" axis and the device
-they live on. This port supports a party whose ranks share one card, the
-only layout one H100 has: NCCL refuses two ranks on one GPU, so the ring
-is one program that holds every rank's data, stacked on a leading rank
-axis — single-controller, as the JAX package's shard_map is. Where the
-JAX package lays a value out with a ``NamedSharding``, the port uses that
-rank-stacked axis: ``(P, ...)``, rank r's row at index r. A party over
-several cards (``torch.distributed`` point-to-point hops) is not ported
-yet (ROADMAP queue A item 9).
+Counterpart of ``geomx_tpu/parallel/mesh.py``: the named-axis mesh
+(``make_mesh`` / ``mesh_shape_for``, JAX ``:29``, ``:40``; axes "dp",
+"tp", "sp" and, when asked for, "pp" and "ep"), ``ring_perm``,
+``ring_chunk_layout``, ``party_devices``, the party mesh
+(``make_party_mesh``) and the two placements of the mesh-party store,
+``replicated`` and ``batch_sharded``.
+
+Every rank of a mesh lives on one device, the only layout one H100 has:
+NCCL refuses two ranks on one GPU, so a collective is one program that
+holds every rank's data, stacked on a leading rank axis —
+single-controller, as the JAX package's shard_map is. Where the JAX
+package lays a value out with a ``NamedSharding``, the port uses that
+rank-stacked axis: ``(P, ...)``, rank r's row at index r
+(:class:`Sharded`, :func:`shard`). So ``make_mesh`` takes its rank count
+from the caller, not from the device count, and the ranks share the
+card's memory: splitting a value over "tp", "ep" or "dp" changes its
+layout, not what one card holds. A mesh over several cards
+(``torch.distributed`` point-to-point hops) is not ported yet (ROADMAP
+queue A item 9).
 """
 
 from __future__ import annotations
@@ -24,8 +30,157 @@ import torch
 
 from geomx_tpu_torch._device import resolve_device
 
-__all__ = ["PartyMesh", "make_party_mesh", "party_devices", "ring_perm",
+__all__ = ["AXES", "AXES5", "Mesh", "mesh_shape_for", "make_mesh",
+           "Sharded", "shard", "check_divisible",
+           "param_layouts", "PartyMesh",
+           "make_party_mesh", "party_devices", "ring_perm",
            "ring_chunk_layout", "replicated", "batch_sharded"]
+
+AXES = ("dp", "tp", "sp")
+AXES5 = ("dp", "tp", "sp", "pp", "ep")
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """Named axes of ranks, every rank on ``device``."""
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+    device: torch.device
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        """The number of ranks (the JAX mesh's ``devices.size``)."""
+        n = 1
+        for s in self.sizes:
+            n *= s
+        return n
+
+
+def mesh_shape_for(n_devices: int, tp: int = 1, sp: int = 1,
+                   pp: int = 1, ep: int = 1) -> Tuple[int, ...]:
+    """Factor n_devices into (dp, tp, sp[, pp, ep]) given requests."""
+    denom = tp * sp * pp * ep
+    if n_devices % denom:
+        raise AssertionError(
+            f"n_devices={n_devices} not divisible by tp*sp*pp*ep={denom}")
+    if pp == 1 and ep == 1:
+        return (n_devices // denom, tp, sp)
+    return (n_devices // denom, tp, sp, pp, ep)
+
+
+def make_mesh(ranks: int, tp: int = 1, sp: int = 1, pp: int = 1,
+              ep: int = 1, *, device=None) -> Mesh:
+    """A mesh of ``ranks`` ranks on ``device`` (``None`` is the CUDA card,
+    and raises without one), factored as the JAX ``make_mesh`` factors
+    its device count: dp = ranks / (tp*sp*pp*ep). The JAX package takes
+    the rank count from ``len(jax.devices())``; on one card that is 1,
+    so the caller names it."""
+    shape = mesh_shape_for(int(ranks), tp, sp, pp, ep)
+    return Mesh(AXES if len(shape) == 3 else AXES5, shape,
+                resolve_device(device))
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def _ways(mesh: Mesh, entry) -> int:
+    n = 1
+    for a in _axes(entry):
+        n *= mesh.shape[a]
+    return n
+
+
+def check_divisible(mesh: Mesh, spec: Sequence, shape: Sequence[int],
+                    what: str = "value") -> None:
+    """Raise ``ValueError`` unless every axis of ``shape`` divides by the
+    mesh axes that ``spec`` maps it to (shard_map's and device_put's
+    check)."""
+    if len(spec) > len(shape):
+        raise ValueError(f"spec {tuple(spec)} has more entries than {what} "
+                         f"of shape {tuple(shape)} has axes")
+    for d, entry in enumerate(spec):
+        for a in _axes(entry):
+            if a not in mesh.shape:
+                raise ValueError(f"spec {tuple(spec)} names axis {a!r}, "
+                                 f"not one of {mesh.axis_names}")
+        n = _ways(mesh, entry)
+        if shape[d] % n:
+            raise ValueError(
+                f"{what} of shape {tuple(shape)} with spec {tuple(spec)} "
+                f"maps axis {d} (of size {shape[d]}) to mesh axis "
+                f"{entry!r} (of size {n}), but {n} does not evenly divide "
+                f"{shape[d]}")
+
+
+def param_layouts(mesh: Mesh, params, spec_for) -> Dict[str, tuple]:
+    """``{flax path: spec}`` of a module's (or a name -> tensor dict's)
+    parameters under ``spec_for(path, ndim)``, each checked against
+    ``mesh`` by :func:`check_divisible`: the parameter spec rules'
+    common walk."""
+    items = params.named_parameters() \
+        if isinstance(params, torch.nn.Module) else params.items()
+    out = {}
+    for name, t in items:
+        path = name.replace(".", "/")
+        out[path] = spec_for(path, t.dim())
+        check_divisible(mesh, out[path], tuple(t.shape), path)
+    return out
+
+
+@dataclass
+class Sharded:
+    """A value laid out over a mesh as ``NamedSharding(mesh, spec)`` lays
+    it out, rank-stacked: ``shards`` is ``(n, *shard_shape)``, ``n`` the
+    number of distinct shards (the product of the mesh axes ``spec``
+    names), shard i holding block i of the value in row-major order of
+    its split axes. A replicated value is one shard."""
+    shards: torch.Tensor
+    mesh: Mesh
+    spec: Tuple
+    shape: Tuple[int, ...]
+
+    @property
+    def dtype(self):
+        return self.shards.dtype
+
+    @property
+    def shard_shape(self) -> Tuple[int, ...]:
+        return tuple(self.shards.shape[1:])
+
+    def full(self) -> torch.Tensor:
+        """The whole value (differentiable with respect to ``shards``)."""
+        ways = [_ways(self.mesh, e) for e in self.spec]
+        ways += [1] * (len(self.shape) - len(ways))
+        nd = len(self.shape)
+        x = self.shards.reshape([*ways, *self.shard_shape])
+        # (w0, .., w_{d-1}, s0, .., s_{d-1}) -> (w0, s0, w1, s1, ...)
+        x = x.permute([i for d in range(nd) for i in (d, nd + d)])
+        return x.reshape(self.shape)
+
+
+def shard(x, mesh: Mesh, spec: Sequence = ()) -> Sharded:
+    """``x`` laid out as ``jax.device_put(x, NamedSharding(mesh,
+    P(*spec)))`` lays it out, rank-stacked on ``mesh.device``."""
+    t = torch.as_tensor(x).to(mesh.device)
+    spec = tuple(spec)
+    check_divisible(mesh, spec, t.shape)
+    nd = t.dim()
+    ways = [_ways(mesh, e) for e in spec] + [1] * (nd - len(spec))
+    pieces = [v for d in range(nd) for v in (ways[d], t.shape[d] // ways[d])]
+    s = t.reshape(pieces).permute([*range(0, 2 * nd, 2),
+                                   *range(1, 2 * nd, 2)])
+    n = 1
+    for w in ways:
+        n *= w
+    return Sharded(s.reshape([n, *(t.shape[d] // ways[d] for d in range(nd))])
+                   .contiguous(), mesh, spec, tuple(t.shape))
 
 
 @dataclass(frozen=True)
