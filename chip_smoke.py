@@ -136,6 +136,32 @@ c.PHASE8['ring']['T'] = 512; c.phase8a(torch, numpy, fa, tb, 'cpu');
 c.phase8b(torch, fa, 'cpu'); c.phase8c(torch, numpy, fa, 'cpu');
 c.phase8d(torch, numpy, 'cpu')"``.
 
+Phase 9 is the quantized combined wire (``GEOMX_WIRE_CODEC``) and the
+chaos layer. 9a runs the 59M decoder as 2 parties x 1 worker over a
+live ``InProcessHiPS`` in aggregator mode (``bench.py``
+``_quant_wire_layout``), its gradient leaves pushed as tensors on the
+card through ``push_pull_async`` (P3 chunks of 4 MiB), SGD on the
+aggregate, under the policies "", fp16, 2bit and mpq in turn (1 warm-up
+and 3 counted rounds each): every counted round's aggregate on both
+workers against a host replay of the four legs (worker push, WAN
+forward, global response, party response; ``tests/test_quant_wire.py``'s
+oracle, each element on its chunk's codec, the 2-bit residuals carried
+over the rounds), the replicas bit for bit, the two_bit kernel launched
+once per 2-bit entry of each push, WAN bytes per codec against the
+payload counted from the shapes, 2bit at least 4x below raw, falling
+losses, and the split of a round (compute, encode and D2H, wire,
+apply). 9b is ``_quant_wire_parity`` with the gradients on the card:
+the 2-bit wire's final loss within 0.05 of the raw wire's. 9c runs
+``run_chaos_matrix.sh``'s quant-wire case (beside the same recipe with
+an empty plan) and its server-kill case as separate processes at once:
+every role exits 0, every worker completes in lockstep, no sanitizer
+marker. To rehearse on the CPU: ``python -c "import numpy, torch,
+chip_smoke as c; from geomx_tpu_torch.ops import flash_attention as fa,
+two_bit as tb; c.MODEL = dict(dim=64, depth=2, heads=4, vocab=256,
+seq_len=64); c.BATCH = 2; c.PHASE9['slice_bytes'] = 16384;
+c.phase9a(torch, numpy, fa, tb, None, 'cpu'); c.phase9b(torch, numpy,
+tb, 'cpu'); c.phase9c('cpu')"`` (~45 s).
+
 Exits non-zero without a card, outside a checkout, or when any check
 fails. The line before the last is the kernel table as JSON; the last is
 ``{"ok": true, "device": {...}}``.
@@ -230,6 +256,22 @@ HIPS_ENV = "source geomx_tpu_torch/scripts/hips_env.sh"
 PHASE8 = dict(iters=20, ckpt_every=10, curve_tol=3e-3, moe_tol=1e-6,
               ring=dict(B=2, H=8, D=32, T=4096, sp=4),
               ring_tol=(2e-2, 5e-2, 5e-2, 5e-2), fsdp_steps=10, pp=4, M=6)
+# phase 9: the quantized combined wire (bench.py _quant_wire_layout /
+# _quant_wire_parity, :1016-1126) at the 59M decoder's width and the
+# chaos matrix's quant-wire and server-kill cases. threshold: the 2-bit
+# legs' at this gradient scale (phase 3d's: the config default 0.5 would
+# code nothing); lr: SGD on the aggregate of the 2 workers; slice_bytes:
+# P3_SLICE_BYTES, 4 MiB (the matrix's 128 KiB cuts the 59M decoder into
+# 1,867 entries and 7,336 WAN messages a round: 25-45 s per round, 834 s
+# for 9a on the H100, PERF.md); parity: bench.py's probe and its gate
+# QUANT_PARITY_TOL (bench.py:1020); matrix_threshold: 9c's quant-wire
+# WAN legs (phase 6a's LeNet threshold: at the default 0.5 they would
+# code nothing of LeNet's gradients and the model would never move)
+PHASE9 = dict(policies=("", "fp16", "2bit", "mpq"), size_lower_bound=2048,
+              slice_bytes=4 << 20, warm=1, rounds=3, threshold=1e-4, lr=0.5,
+              parity=dict(d=256, n=64, rounds=200, threshold=0.1, lr=0.05),
+              parity_tol=0.05, matrix_iters=10, timeout_9c=300,
+              matrix_threshold=2e-4)
 TF8 = []     # extra train_transformer flags (a CPU rehearsal's tiny model)
 MOE8 = []    # extra train_moe flags
 
@@ -2835,6 +2877,423 @@ def phase8d(torch, np, dev="cuda"):
             fail(f"phase 8d: pipeline {what} off by {err}")
 
 
+# -- phase 9: the quantized combined wire and the chaos layer --------------
+
+def wire_plan(np, kv, keys):
+    """The worker's push entries ((key, shard) in layer order) and the
+    codec of each, as ``KVStoreDist.push_pull_async`` plans them (its
+    ``_shards`` and ``plan_chunks`` with the wire's ``chunk_codec``):
+    a list of (key, offset, length, codec)."""
+    from geomx_tpu_torch.kvstore.frontier import plan_chunks
+
+    entries = [(k, sh) for k in keys for sh in kv._key_info[k].shards]
+    chunks = plan_chunks(
+        list(range(len(entries))), [sh.length * 4 for _k, sh in entries],
+        kv.cfg.p3_slice_bytes,
+        codec_for=kv._wire.chunk_codec if kv._wire.enabled() else None)
+    out = []
+    for ch in chunks:
+        for i in ch.items:
+            k, sh = entries[i]
+            out.append((k, sh.offset, sh.length, ch.codec))
+    return out
+
+
+def wire_replay(torch, np, grads, plan, starts, thr, warm):
+    """The four legs of every round, replayed on the host (the oracle of
+    ``tests/test_quant_wire.py``, ``_qd``, per element on its entry's
+    codec): per party agg = leg(g); WAN forward wan = leg(agg); global
+    S = wan_0 + wan_1; one global response rsp = leg(S); party response
+    out = leg(rsp). Raw legs are exact, fp16 legs round to half, 2-bit
+    legs quantize with error feedback, each leg its own residual stream
+    carried over the rounds. ``grads[w][r]``: worker w's flat gradient of
+    round r; returns the aggregate of each round from ``warm`` on. A
+    2-bit leg is ``_qd``'s quantize and dequantize in one elementwise
+    step (the residual takes the value, gives up +-thr past +-thr, and
+    the receiver sees what it gave up): the same operations on each
+    element, without the 4-per-byte pack, as CPU tensor ops (fp32
+    elementwise arithmetic and round-to-nearest-even halves, as numpy's,
+    on every core: at 59M elements numpy's float16 casts alone took 22 s
+    of four rounds)."""
+    n = grads[0][0].size
+    code = np.zeros(n, np.uint8)            # 0 raw, 1 fp16, 2 2bit
+    for k, off, length, codec in plan:
+        a = starts[k] + off
+        code[a:a + length] = {"": 0, "fp16": 1, "2bit": 2}[codec]
+    present = set(np.unique(code).tolist())
+    code = torch.from_numpy(code)
+    f16 = lambda x: x.half().float()  # noqa: E731
+    t = torch.tensor(thr, dtype=torch.float32)
+    zero = torch.zeros((), dtype=torch.float32)
+    res = {}
+
+    def qd(leg, x):
+        r = res.setdefault(leg, torch.zeros(n, dtype=torch.float32))
+        r += x
+        got = torch.where(r > t, t, torch.where(r < -t, -t, zero))
+        r -= got
+        return got
+
+    outs = []
+    for rnd in range(len(grads[0])):
+        g = [torch.from_numpy(grads[0][rnd]), torch.from_numpy(grads[1][rnd])]
+        # each codec's chain over the whole vector (an element keeps its
+        # codec every round, so the chains' values elsewhere are never
+        # read), then each element from its own codec's chain
+        chain = {}
+        if 0 in present:
+            chain[0] = g[0] + g[1]
+        if 1 in present:
+            chain[1] = f16(f16(g[0]) + f16(g[1]))
+        if 2 in present:
+            wan = [qd(("fwd", p), qd(("push", p), g[p])) for p in (0, 1)]
+            rsp = qd("grsp", wan[0] + wan[1])
+            parts = [qd(("prsp", p), rsp) for p in (0, 1)]
+            if not torch.equal(parts[0], parts[1]):
+                fail("phase9a replay: the two party responses differ")
+            chain[2] = parts[0]
+        out = None
+        for c, v in chain.items():
+            out = v if out is None else torch.where(code == c, v, out)
+        if rnd >= warm:
+            outs.append(out.numpy())
+    return outs
+
+
+def wan_by_codec_payload(plan, parties=2):
+    """Bytes per round each codec's WAN payloads take, headers excluded:
+    every party forwards each entry up and takes the global response
+    back, raw 4 B, fp16 2 B and 2-bit a quarter byte per element plus the
+    4-byte threshold."""
+    out = {}
+    for _k, _off, n, codec in plan:
+        c = codec or "raw"
+        b = {"raw": 4 * n, "fp16": 2 * n, "2bit": -(-n // 4) + 4}[c]
+        out[c] = out.get(c, 0) + 2 * parties * b
+    return out
+
+
+def quant_wire_round(torch, np, fa, tb, policy, leaves0, grad_step, dev):
+    """One policy of 9a: 2 parties x 1 worker, aggregator mode, the
+    59M decoder's gradient leaves pushed as tensors on ``dev`` through
+    ``push_pull_async`` and SGD on the aggregate; 1 warm-up and
+    PHASE9["rounds"] counted rounds."""
+    from geomx_tpu_torch import telemetry
+    from geomx_tpu_torch.examples.transformer_bsc_device import synth_batch
+
+    P = PHASE9
+    R, warm = P["warm"] + P["rounds"], P["warm"]
+    keys = list(range(len(leaves0)))
+    bar = threading.Barrier(2)
+    res, counts, wan = {}, {}, {}
+    telemetry.enable(True)
+
+    def worker(kv, w):
+        leaves = [torch.as_tensor(np.asarray(l), device=dev).clone()
+                  for l in leaves0]
+        batch = torch.as_tensor(synth_batch(
+            np.random.default_rng(4321 + w), BATCH, MODEL["seq_len"],
+            MODEL["vocab"]), device=dev)
+        outs = [np.zeros(np.shape(l), np.float32) for l in leaves0]
+        for k, o in zip(keys, outs):
+            kv.init(k, o.copy())
+        kv.wait()
+        grads_host, aggs, losses, split = [], [], [], []
+        for rnd in range(R):
+            if rnd == warm:
+                bar.wait(JOIN_S)
+                if w == 0:
+                    reset([fa.LAUNCHES, tb.LAUNCHES])
+                    telemetry.reset()
+                    telemetry.enable(True)
+                bar.wait(JOIN_S)
+            t0 = time.perf_counter()
+            loss, grads = grad_step(leaves, batch, None)
+            grads = [g.detach().float().contiguous() for g in grads]
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fut = kv.push_pull_async(keys, grads, outs)
+            t2 = time.perf_counter()
+            fut.wait(timeout=JOIN_S)
+            t3 = time.perf_counter()
+            with torch.no_grad():
+                for leaf, o in zip(leaves, outs):
+                    leaf.sub_(torch.from_numpy(o).to(dev),
+                              alpha=P["lr"] / 2)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            losses.append(float(loss))
+            split.append({"compute_ms": (t1 - t0) * 1e3,
+                          "encode_d2h_ms": (t2 - t1) * 1e3,
+                          "wire_ms": (t3 - t2) * 1e3,
+                          "apply_ms": (t4 - t3) * 1e3})
+            grads_host.append(np.concatenate(
+                [g.cpu().numpy().ravel() for g in grads]))
+            if rnd >= warm:
+                aggs.append(np.concatenate([o.ravel() for o in outs]))
+        bar.wait(JOIN_S)
+        if w == 0:
+            counts.update(fa.LAUNCHES, **tb.LAUNCHES)
+            wan["bytes"], wan["msgs"] = wan_counts()
+            wan["by_codec"] = telemetry.wan_bytes_by_codec()
+            wan["plan"] = wire_plan(np, kv, keys)
+        bar.wait(JOIN_S)
+        # the loss after the last round's update (the 2-bit legs pass a
+        # coordinate only once its residual has built up over rounds)
+        losses.append(float(grad_step(leaves, batch, None)[0]))
+        res[w] = dict(grads=grads_host, aggs=aggs, losses=losses,
+                      split=split[warm:],
+                      leaves=[l.cpu().numpy() for l in leaves])
+
+    run_hips(worker, init_keys(np, [np.zeros(np.shape(l), np.float32)
+                                    for l in leaves0]),
+             f"phase9a {policy or 'raw'}",
+             barriers=[bar],
+             topo_kw={"device": dev, "extra_cfg": {
+                 "wire_codec": policy,
+                 "wire_2bit_threshold": P["threshold"],
+                 "size_lower_bound": P["size_lower_bound"],
+                 "p3_slice_bytes": P["slice_bytes"]}})
+    return res, counts, wan
+
+
+def phase9a(torch, np, fa, tb, dense, dev="cuda"):
+    """The quantized combined wire at the 59M decoder's width:
+    ``GEOMX_WIRE_CODEC`` "", fp16, 2bit and mpq in turn over a live 2 x 1
+    HiPS, P3 chunks of 4 MiB. Every counted round's aggregate on both
+    workers against the host replay of the four legs, the replicas bit
+    for bit, the two_bit launches against the plan's 2-bit entries, the
+    WAN bytes against the payload counted from the shapes and codecs,
+    2bit at least 4x below raw, falling losses; the step split beside
+    phase 4b's dense wire. Returns the launches of each policy's counted
+    rounds."""
+    from geomx_tpu_torch.examples.transformer_bsc_device import \
+        build_transformer_grad_step
+
+    P = PHASE9
+    leaves0, grad_step = build_transformer_grad_step(
+        **MODEL, compute_dtype=torch.bfloat16, device=dev, attn="auto")
+    sizes = [int(np.asarray(l).size) for l in leaves0]
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    R, warm = P["warm"] + P["rounds"], P["warm"]
+    launches, wan_of, n2bit = {}, {}, {}
+    raw_framing = None
+    for policy in P["policies"]:
+        name = policy or "raw"
+        t = time.perf_counter()
+        res, counts, wan = quant_wire_round(torch, np, fa, tb, policy,
+                                            leaves0, grad_step, dev)
+        plan = wan["plan"]
+        n2bit[name] = sum(1 for e in plan if e[3] == "2bit")
+        launches[name] = counts
+        # the aggregates against the host replay, every counted round
+        t_r = time.perf_counter()
+        want = wire_replay(torch, np, [res[0]["grads"], res[1]["grads"]],
+                           plan, starts, P["threshold"], warm)
+        for w in (0, 1):
+            for rnd, (a, b) in enumerate(zip(res[w]["aggs"], want)):
+                if not np.array_equal(a, b):
+                    bad = int(np.count_nonzero(a != b))
+                    fail(f"phase9a {name}: worker {w} round {warm + rnd}: "
+                         f"{bad} of {a.size} aggregate elements differ from "
+                         "the host replay of the four legs")
+        replay_s = time.perf_counter() - t_r
+        check_replicas(np, [res[0]["leaves"], res[1]["leaves"]],
+                       f"phase9a {name}")
+        # the kernel once per 2-bit entry, per worker and round
+        want_tb = 2 * P["rounds"] * n2bit[name] if dev == "cuda" else 0
+        if counts["two_bit"] != want_tb:
+            fail(f"phase9a {name}: two_bit launched {counts['two_bit']} "
+                 f"times in {P['rounds']} rounds of 2 workers, expected "
+                 f"{want_tb} ({n2bit[name]} 2-bit entries per push)")
+        want_fa = 2 * MODEL["depth"] * P["rounds"] if dev == "cuda" else 0
+        for key in KERNELS:
+            if counts[key] != want_fa:
+                fail(f"phase9a {name}: {key} launched {counts[key]} times, "
+                     f"expected {want_fa}")
+        # WAN bytes per round against the payload from shapes and codecs
+        per_round = wan["bytes"] / P["rounds"]
+        msgs = wan["msgs"] / P["rounds"]
+        payload = wan_by_codec_payload(plan)
+        got = {c: v / P["rounds"] for c, v in wan["by_codec"].items()}
+        framing = (per_round - sum(payload.values())) / max(msgs, 1)
+        if raw_framing is None:
+            raw_framing = framing
+        wan_of[name] = per_round
+        for l in (0, 1):
+            x = res[l]["losses"][warm:]
+            if not all(math.isfinite(v) for v in x) or not x[-1] < x[0]:
+                fail(f"phase9a {name}: worker {l} counted losses {x} are "
+                     "not finite and falling")
+        print(f"[phase9a] {name}: {len(plan)} entries per push, "
+              f"{n2bit[name]} of them 2-bit; losses "
+              f"{[round(v, 5) for v in res[0]['losses']]} (worker 0), "
+              f"{[round(v, 5) for v in res[1]['losses']]} (worker 1); "
+              f"launches in the {P['rounds']} counted rounds {counts}",
+              flush=True)
+        print(f"[phase9a] {name}: WAN {per_round:.1f} bytes in {msgs:.1f} "
+              f"messages per round, by codec "
+              f"{ {c: round(v, 1) for c, v in got.items()} }, payload from "
+              f"the shapes {payload}, framing {framing:.1f} B per message; "
+              f"replay of {R} rounds {replay_s:.1f} s, run "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+        for w in (0, 1):
+            print(f"[phase9a] {name}: worker {w} split medians of "
+                  f"{P['rounds']} rounds (ms) {medians(res[w]['split'])}",
+                  flush=True)
+        for c in set(payload) | set(got):
+            lo = payload.get(c, 0)
+            hi = lo + msgs * 2 * max(raw_framing, 0.0)
+            if not lo <= got.get(c, 0) <= hi:
+                fail(f"phase9a {name}: {got.get(c, 0)} {c} WAN bytes per "
+                     f"round, outside the payload {lo} plus twice the raw "
+                     f"run's {raw_framing:.1f} B of framing per message")
+        del res
+    if dense is not None:
+        print(f"[phase9a] phase 4b's dense wire (ms, pipelined BSC "
+              f"trainer, same run) {dense['wire_ms']}", flush=True)
+    ratio = wan_of["raw"] / wan_of["2bit"]
+    print(f"[phase9a] WAN bytes per round {wan_of}; raw / 2bit "
+          f"{ratio:.2f}x; 2-bit entries per push {n2bit}", flush=True)
+    if ratio < 4.0:
+        fail(f"phase9a: 2bit moves {ratio:.2f}x fewer WAN bytes than raw, "
+             "below the 4x gate (bench.py:1140-1148)")
+    if not (n2bit["fp16"] == n2bit["raw"] == 0
+            and 0 < n2bit["mpq"] < n2bit["2bit"]):
+        fail(f"phase9a: 2-bit entries per push {n2bit}: expected none for "
+             "raw and fp16 and fewer for mpq than for 2bit")
+    return launches
+
+
+def phase9b(torch, np, tb, dev="cuda"):
+    """``bench.py`` ``_quant_wire_parity`` on the card: 2 workers of a
+    linear regression (d 256, 64 samples each), 200 rounds of the
+    combined wire with the gradients as tensors on ``dev``, SGD on the
+    aggregate; the 2-bit wire's final loss within QUANT_PARITY_TOL of
+    the raw wire's. Returns the 2-bit run's two_bit launches."""
+    P = PHASE9["parity"]
+    losses, launches = {}, {}
+    for policy in ("", "2bit"):
+        out_l = {}
+
+        def worker(kv, w):
+            d, n = P["d"], P["n"]
+            w_true = (np.random.RandomState(7).randn(d)
+                      / np.sqrt(d)).astype(np.float32)
+            rng = np.random.RandomState(42 + w)
+            X = torch.as_tensor(rng.randn(n, d).astype(np.float32),
+                                device=dev)
+            y = X @ torch.as_tensor(w_true, device=dev)
+            wv = torch.zeros(d, device=dev)
+            kv.init(0, np.zeros(d, np.float32))
+            kv.wait()
+            out = np.zeros(d, np.float32)
+            for _ in range(P["rounds"]):
+                grad = (2.0 / n) * (X.T @ (X @ wv - y))
+                kv.push_pull_async(0, grad, out).wait(timeout=JOIN_S)
+                wv -= P["lr"] * torch.from_numpy(out).to(dev) / 2.0
+            r = X @ wv - y
+            out_l[w] = float((r * r).mean())
+
+        def master(kv):
+            kv.init(0, np.zeros(P["d"], np.float32))
+            kv.wait()
+
+        reset([tb.LAUNCHES])
+        run_hips(worker, master, f"phase9b {policy or 'raw'}",
+                 topo_kw={"device": dev, "extra_cfg": {
+                     "wire_codec": policy,
+                     "wire_2bit_threshold": P["threshold"]}})
+        launches[policy or "raw"] = tb.LAUNCHES["two_bit"]
+        losses[policy or "raw"] = (out_l[0] + out_l[1]) / 2
+    gap = losses["2bit"] - losses["raw"]
+    print(f"[phase9b] linear regression d {P['d']}, {P['rounds']} rounds: "
+          f"final loss raw {losses['raw']:.6f}, 2bit {losses['2bit']:.6f} "
+          f"(gap {gap:.6f}, gate {PHASE9['parity_tol']}); two_bit launches "
+          f"{launches}", flush=True)
+    want = 2 * P["rounds"] if dev == "cuda" else 0
+    if launches["2bit"] != want or launches["raw"] != 0:
+        fail(f"phase9b: two_bit launches {launches}, expected {want} for "
+             "2bit (one per push) and none for raw")
+    if not math.isfinite(gap) or gap > PHASE9["parity_tol"]:
+        fail(f"phase9b: the 2-bit wire's loss is {gap} above the raw "
+             f"wire's, over the {PHASE9['parity_tol']} gate")
+    return launches["2bit"]
+
+
+def phase9c(dev):
+    """Two cases of ``run_chaos_matrix.sh`` as separate processes, every
+    worker through ``--worker``, all at once: quant-wire (the 2-bit wire
+    under drops and duplicates, resender and wire sanitizer on) beside the
+    same recipe with an empty plan, and server-kill (party A's server
+    crashed by ``CHAOS_PLAN_SERVER_A``, a replacement restoring the
+    snapshot). Every role exits 0, every worker completes every round in
+    lockstep, no sanitizer marker in any log. Returns the two_bit
+    launches of the worker processes."""
+    import re
+    from concurrent.futures import ThreadPoolExecutor
+
+    P = PHASE9
+    root = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join(root, "logs", "chip_smoke")
+    thr = {"GEOMX_WIRE_2BIT_THRESHOLD": repr(P["matrix_threshold"])}
+    runs = (("quant-wire", "quant-wire", thr),
+            ("clean/quant-wire", "quant-wire",
+             {"FAULT_FREE": "1", "PORT_OFFSET": "300", **thr}),
+            ("server-kill", "server-kill", {}))
+    iters = ["--max-iters", str(P["matrix_iters"])]
+    with ThreadPoolExecutor(len(runs)) as pool:
+        futures = [pool.submit(
+            launch, tag,
+            ["bash", "geomx_tpu_torch/scripts/run_chaos_matrix.sh", *iters],
+            dev, P["timeout_9c"],
+            {"CASES": case, "LOG_ROOT": os.path.dirname(
+                os.path.join(base, tag)), **env})
+            for tag, case, env in runs]
+        all_logs = [f.result() for f in futures]
+    out = {}
+    for (tag, case, _env), logs in zip(runs, all_logs):
+        marked = [n for n, text in logs.items()
+                  if "SANITIZER VIOLATION" in text]
+        if marked:
+            fail(f"phase9c {tag}: sanitizer violations in {marked}")
+        ws, master = workers_of(logs)
+        reps = [report(w, f"9c {tag}", f"worker {i}", dev)
+                for i, w in enumerate(ws)]
+        report(master, f"9c {tag}", "master", dev)
+        accs = [[float(a) for _i, a in re.findall(ACC_RE, w)] for w in ws]
+        lockstep(accs, f"9c {tag}", "per-round accuracies")
+        if len(accs[0]) != P["matrix_iters"]:
+            fail(f"phase9c {tag}: {len(accs[0])} rounds, not "
+                 f"{P['matrix_iters']}")
+        if len(set(accs[0])) == 1:
+            fail(f"phase9c {tag}: the accuracy never moved: {accs[0]}")
+        lockstep([[r["digest"]] for r in reps], f"9c {tag}",
+                 "parameter digests")
+        out[tag] = dict(launches=[r["launches"]["two_bit"] for r in reps],
+                        digest=reps[0]["digest"], acc=accs[0][-1],
+                        respawn="server_A_respawn.log" in logs and any(
+                            "crashing van" in text for text in logs.values()))
+        print(f"[phase9c] {tag}: every role exited 0, {len(ws)} workers in "
+              f"lockstep for {P['matrix_iters']} rounds, last accuracy "
+              f"{accs[0][-1]:.4f}, two_bit launches per worker process "
+              f"{out[tag]['launches']}, parameters sha256 "
+              f"{out[tag]['digest']}", flush=True)
+    if not out["server-kill"]["respawn"]:
+        fail("phase9c server-kill: the crash did not fire or no "
+             "replacement server ran")
+    same = out["quant-wire"]["digest"] == out["clean/quant-wire"]["digest"]
+    print(f"[phase9c] quant-wire under drops and duplicates "
+          f"{out['quant-wire']['digest']}, fault-free "
+          f"{out['clean/quant-wire']['digest']}: "
+          + ("the same parameters" if same else
+             "the parameters differ (the resender replays the bytes as "
+             "built, so they were expected to be equal)"), flush=True)
+    return sum(sum(o["launches"]) for o in out.values())
+
+
 def main():
     try:
         import torch
@@ -2927,6 +3386,12 @@ def main():
     lap("phase8c")
     phase8d(torch, np)
     lap("phase8d")
+    launches9a = phase9a(torch, np, fa, tb, dense)
+    lap("phase9a")
+    launches9b = phase9b(torch, np, tb)
+    lap("phase9b")
+    launches9c = phase9c("cuda")
+    lap("phase9c")
 
     table = [{
         "name": name, "route": "cuda", "source": SOURCE, "replaces": where,
@@ -2943,7 +3408,8 @@ def main():
                for c, r in mesh6a["runs"].items()},
             "6b_per_round": mesh6b[key], "7b": procs7b[key],
             "7c": procs7c[key], "8a": launches8[key],
-            "8a_per_step": {c: n[key] for c, n in per_step8.items()}},
+            "8a_per_step": {c: n[key] for c, n in per_step8.items()},
+            "9a": {c: n[key] for c, n in launches9a.items()}},
         "d32": d32[key],
     } for key, (name, where, kernel) in KERNELS.items()]
     table.append({
@@ -2959,7 +3425,9 @@ def main():
             **{f"6a-{c}": r["launches"]["two_bit"]
                for c, r in mesh6a["runs"].items()},
             "6b_per_round": mesh6b["two_bit"], "7b": procs7b["two_bit"],
-            "7c": procs7c["two_bit"], "8a": launches8["two_bit"]}})
+            "7c": procs7c["two_bit"], "8a": launches8["two_bit"],
+            "9a": {c: n["two_bit"] for c, n in launches9a.items()},
+            "9b": launches9b, "9c": launches9c}})
     print(card, flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -40,7 +40,8 @@ import torch
 from geomx_tpu_torch import config as cfg_mod
 from geomx_tpu_torch import profiler
 from geomx_tpu_torch import telemetry
-from geomx_tpu_torch.compression.device import WireCodec, decode_wire
+from geomx_tpu_torch.compression.device import (WireCodec, _host_array,
+                                                decode_wire)
 from geomx_tpu_torch.kvstore import sharding
 from geomx_tpu_torch.kvstore.controller import TransportController
 from geomx_tpu_torch.kvstore.base import Command, DATA_INIT, KVStore, _sum_values
@@ -74,11 +75,31 @@ def _wire_decode(kvs, i: int) -> np.ndarray:
     return decode_wire(kvs.compr, kvs.vals[i], aux, kvs.len_of(i) or 0)
 
 
-def _is_device_array(arr) -> bool:
-    """A CUDA ``torch.Tensor``: lets the combined wire keep gradients on
-    the card until the per-chunk encode (the port's ``WireCodec``), so
-    the D2H moves packed bytes."""
-    return isinstance(arr, torch.Tensor) and arr.is_cuda
+def _is_tensor_value(value) -> bool:
+    """A ``torch.Tensor`` (or a list of them, one per device): with the
+    quantized wire on, the combined wire keeps it where it lies until
+    the per-chunk encode (the port's ``WireCodec``, the 2-bit kernel on
+    a CUDA tensor), so the device-to-host copy moves packed bytes."""
+    if isinstance(value, (list, tuple)):
+        return bool(value) and all(isinstance(v, torch.Tensor)
+                                   for v in value)
+    return isinstance(value, torch.Tensor)
+
+
+def _sum_tensors(value) -> torch.Tensor:
+    """:func:`_sum_values` for tensors, on their device (the first
+    tensor's)."""
+    if isinstance(value, (list, tuple)):
+        out = value[0].detach()
+        for v in value[1:]:
+            out = out + v.detach().to(out.device)
+        return out
+    return value.detach()
+
+
+def _numel(seg) -> int:
+    return int(seg.numel()) if isinstance(seg, torch.Tensor) \
+        else int(seg.size)
 
 
 class _KeyInfo:
@@ -657,21 +678,24 @@ class KVStoreDist(KVStore):
         # layer-ordered (key, shard, flat-segment) entry list
         entries = []
         for k, v in zip(keys, values):
-            merged = _sum_values(v)
-            info = self._info(k, merged)
-            if wire_on and _is_device_array(merged):
-                # quantized wire + device gradient: stay on device —
+            if wire_on and _is_tensor_value(v):
+                # quantized wire + tensor gradient: stay on its device —
                 # the per-chunk encode below packs there, so the D2H
                 # is the packed bytes, not fp32
-                flat = merged.ravel()
+                merged = _sum_tensors(v)
+                info = self._info(k, np.broadcast_to(
+                    np.float32(0), tuple(merged.shape)))
+                flat = merged.reshape(-1)
             else:
+                merged = _sum_values(v)
+                info = self._info(k, merged)
                 flat = np.ascontiguousarray(merged).ravel()
             for sh in info.shards:
                 entries.append(
                     (k, sh, flat[sh.offset:sh.offset + sh.length]))
         chunks = plan_chunks(
             list(range(len(entries))),
-            [int(e[2].size) * 4 for e in entries],
+            [_numel(e[2]) * 4 for e in entries],
             sb, base_priority=priority,
             codec_for=self._wire.chunk_codec
             if self._wire.enabled() else None)
@@ -688,7 +712,7 @@ class KVStoreDist(KVStore):
         for ch in chunks:
             per_server: Dict[int, KVPairs] = {}
             server_keys: Dict[int, List[int]] = {}
-            ch_elems = sum(int(entries[ei][2].size) for ei in ch.items)
+            ch_elems = sum(_numel(entries[ei][2]) for ei in ch.items)
             for ei in ch.items:
                 k, sh, seg = entries[ei]
                 # per-(chunk, server) codec: the transport plan's
@@ -712,7 +736,7 @@ class KVStoreDist(KVStore):
                     # decompress indexes aux[i] positionally
                     kvs.aux.append(aux)
                 else:
-                    kvs.vals.append(np.asarray(seg))
+                    kvs.vals.append(_host_array(seg))
                 kvs.offsets.append(sh.offset)
                 kvs.totals.append(sh.total)
                 kvs.lens.append(sh.length)

@@ -713,6 +713,20 @@ class Van:
             args["origin"] = meta.trace_origin
         return args
 
+    def _retried_later(self, target: int, msg: Message) -> bool:
+        """A data frame the resender registered is its to deliver: a
+        failed wire attempt (a peer whose process died, before its
+        replacement takes the slot) is retransmitted by the monitor
+        until the frame is acked, its peer declared dead or
+        PS_RESEND_DEADLINE passes, instead of raising into the caller
+        at once."""
+        if (self._resender is None or msg.meta.msg_sig == 0
+                or msg.is_control):
+            return False
+        log.warning("%s send to node %d failed; the resender retries it",
+                    self._tag(), target)
+        return True
+
     def _send_one_inner(self, target: int, msg: Message) -> int:
         # send-side crash counting ("crash ... on: send" rules): the van
         # dies BEFORE this frame reaches the wire
@@ -758,10 +772,17 @@ class Van:
                 # a new address that the table broadcast has not brought
                 # yet: resend once when it does
                 if not self._await_route_change(target, addr):
+                    if self._retried_later(target, msg):
+                        return 0
                     raise
                 addr = self.node_table[target]
                 self._native.set_route(target, addr[0], addr[1])
-                n = self._native.send(target, buf)
+                try:
+                    n = self._native.send(target, buf)
+                except OSError:
+                    if self._retried_later(target, msg):
+                        return 0
+                    raise
             self._sent_to(target, n)
             return n
         for attempt in (0, 1):
@@ -782,6 +803,8 @@ class Van:
                 # peer dialled us anew
                 self._evict_conn(target, sock)
                 if attempt == 1:
+                    if self._retried_later(target, msg):
+                        return 0
                     raise
                 self._await_route_change(target, addr)
         return 0

@@ -54,12 +54,20 @@ DMLC_NUM_GLOBAL_SERVER=$NGS DMLC_NUM_GLOBAL_WORKER=2"
 # pids of this launch's background roles, reaped by reap_hips
 HIPS_PIDS=""
 
-# one data-party server
+# one data-party server. If CHAOS_PLAN_SERVER_A is set, party A's
+# server (and only it) runs under that fault plan: a node/tier match
+# alone cannot single it out (every party's server is local id 8).
+# Used by both launch_hips and launch_mesh_hips.
 launch_hips_party_server() {
   local PPORT="$1" PHOST="$2" NH_P="$3" NWORK="$4" LOG="$5"
+  local PLAN=()
+  if [ "$PPORT" = "$APORT" ] && [ -n "${CHAOS_PLAN_SERVER_A:-}" ]; then
+    PLAN=("PS_FAULT_PLAN=$CHAOS_PLAN_SERVER_A")
+  fi
   env $(echo $GLOBALS) $NH_P DMLC_ROLE=server \
     DMLC_PS_ROOT_URI=$PHOST DMLC_PS_ROOT_PORT=$PPORT \
     DMLC_NUM_SERVER=1 DMLC_NUM_WORKER=$NWORK \
+    "${PLAN[@]}" \
     $PYTHON $INFRA > "$LOG" 2>&1 &
   HIPS_PIDS="$HIPS_PIDS $!"
 }

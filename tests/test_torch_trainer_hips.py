@@ -55,17 +55,18 @@ def _torch_bowl(leaves, X, y):
 
 
 def _run(pkg, leaves, make_trainer, batches, rounds, timed=0,
-         overlap=True, slice_bytes=0):
+         overlap=True, slice_bytes=0, wire_codec=""):
     """``rounds`` rounds (the last ``timed`` through ``step_timed``) on
     each worker of a 2x1 topology of package ``pkg``; returns each
     worker's leaves, losses and trainer. ``slice_bytes`` is
     P3_SLICE_BYTES (it also slices the dense init pushes, so only tiny
-    models take a tiny one)."""
+    models take a tiny one); ``wire_codec`` GEOMX_WIRE_CODEC."""
     sim = jsim if pkg == "jax" else tsim
     topo = sim.InProcessHiPS(
         num_parties=2, workers_per_party=1,
         extra_cfg={"overlap": overlap,
-                   "p3_slice_bytes": slice_bytes}).start()
+                   "p3_slice_bytes": slice_bytes,
+                   "wire_codec": wire_codec}).start()
     out = {}
     try:
         def master_init(kv):
