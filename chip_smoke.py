@@ -272,6 +272,46 @@ PHASE9 = dict(policies=("", "fp16", "2bit", "mpq"), size_lower_bound=2048,
               parity=dict(d=256, n=64, rounds=200, threshold=0.1, lr=0.05),
               parity_tol=0.05, matrix_iters=10, timeout_9c=300,
               matrix_threshold=2e-4)
+# phase 10: the image-classification path. 10a: one model per zoo family
+# at published width (224 x 224 x 3, InceptionV3 299 x 299 x 3, 1,000
+# classes; the language models at get_model's defaults, sequences of
+# `seq` tokens); its train step at `check_batch` from the same leaves:
+# in float64 on the card, each gradient leaf within f64_tol of (its norm
+# plus the whole gradient's) of the CPU's float64 step: the same
+# function, leaf by leaf (the vision models land within 1e-9 of the
+# bound's scale, cuDNN's float64 recurrences up to 2.3e-6 off the CPU's). In float32 on the card against float64: the
+# loss within loss_tol relative; and, where the CPU's own float32 step
+# from the same leaves lands within grad_tol of float64 (relative norm
+# of the whole gradient), the card's within grad_tol or whole_factor
+# times the CPU's; the leaves within grad_tol of their norm are counted.
+# Elsewhere float32 cannot meet the bound: at random init a BatchNorm
+# net's float32 backward is far off float64, as the CPU's shows: the
+# BatchNorm backward subtracts its batch means at every layer, and on
+# the CPU the stem BatchNorm's bias gradient lands 3 to 24 times past
+# 1e-3 of its norm at these sizes, the whole gradient 1-3% from float64
+# (ResNet-50, VGG16-BN, DenseNet-121, the MobileNets, InceptionV3); on
+# the card cuDNN's float32 algorithms add their own rounding (SqueezeNet
+# 1.1's stem weight gradient 3.4e-3 of its norm, the CPU's 6e-7;
+# InceptionV3's whole gradient 71% from float64, the CPU's 3.6%).
+# Then the float32 step's median over `time_reps` at `time_batch`. JAX_PARAMS: the JAX package's parameter
+# counts of the same names (jax.eval_shape of its get_model at 1,000
+# classes). 10b: examples/cnn.py's run_worker, --model resnet50 -dt
+# cifar10, 2 parties x 1 worker, batch 32, 10 rounds; a leg carries the
+# 161 leaves dense fp32, 4 x 23,520,842 bytes. 10c: the records path
+# (tests/test_image_pipeline.py:138's) on the card: 96 raw CIFAR-shaped
+# records, ResNet-18 at 3 classes, 12 Adam steps of 32.
+ZOO10 = ("resnet50", "alexnet", "vgg16_bn", "squeezenet1.1", "mobilenet1.0",
+         "mobilenetv2_1.0", "densenet121", "inceptionv3", "lstm_lm",
+         "gru_lm", "rnn_lm")
+JAX_PARAMS = {"resnet50": 25_557_032, "alexnet": 61_100_840,
+              "vgg16_bn": 138_365_992, "squeezenet1.1": 1_235_496,
+              "mobilenet1.0": 4_231_976, "mobilenetv2_1.0": 3_504_872,
+              "densenet121": 7_978_856, "inceptionv3": 23_834_568,
+              "lstm_lm": 388_584, "gru_lm": 355_816, "rnn_lm": 289_896}
+PHASE10 = dict(check_batch=2, time_batch=32, time_reps=10, seq=64,
+               loss_tol=1e-4, grad_tol=1e-3, f64_tol=1e-5, whole_factor=4,
+               hips_rounds=10, hips_batch=32, resnet50_cifar_params=23_520_842,
+               records=96, record_epochs=4, record_batch=32)
 TF8 = []     # extra train_transformer flags (a CPU rehearsal's tiny model)
 MOE8 = []    # extra train_moe flags
 
@@ -1516,12 +1556,13 @@ def wan_counts():
 
 
 def run_feature(torch, np, mod, argv, tag, rounds, dev, topo_kw=None,
-                env=None):
+                env=None, batch=None):
     """One feature config over a live two-party HiPS, driven through its
     example's ``run_worker``: the master's part first (optimizer, codec,
     init), then both party workers, each on its own data slice, for
-    ``rounds`` rounds. ``env`` holds the variables the example's
-    ``parse_args`` reads. Returns the workers' results and the WAN bytes
+    ``rounds`` rounds of ``batch`` images (FEATURE's by default). ``env``
+    holds the variables the example's ``parse_args`` reads. Returns the
+    workers' results and the WAN bytes
     and messages per round from the end of round 1 to the end of the
     last."""
     from geomx_tpu_torch import telemetry
@@ -1529,7 +1570,7 @@ def run_feature(torch, np, mod, argv, tag, rounds, dev, topo_kw=None,
     telemetry.enable(True)
     bar = threading.Barrier(2)
     wan, res = {}, {}
-    common = ["-bs", str(FEATURE["batch"]), "-ep", str(rounds),
+    common = ["-bs", str(batch or FEATURE["batch"]), "-ep", str(rounds),
               "--max-iters", str(rounds)] + argv
     with mock.patch.dict(os.environ, env or {}):
         margs = mod.parse_args(common)
@@ -1593,7 +1634,8 @@ def phase5(torch, np, dev="cuda"):
     example's ``run_worker`` with LeNet at full width, 128 images per
     worker per round: 5a the no-kvstore baseline and vanilla FSA (server
     Adam), 5b HFA (K1 4, K2 2, local Adam), 5c fp16 (multi-precision,
-    bf16 compute), BSC, MPQ and MixedSync."""
+    bf16 compute), BSC, MPQ and MixedSync. Returns the framing bytes per
+    key of a WAN message that 5a's dense round measured."""
     from geomx_tpu_torch.examples import cnn, cnn_bsc, cnn_fp16, cnn_hfa, \
         cnn_mpq
 
@@ -1661,6 +1703,9 @@ def phase5(torch, np, dev="cuda"):
             fail(f"{tag}: accuracy ({gate[0]}) {accs} below {gate[1]:.4f}")
         if lockstep:
             check_replicas(np, [res[0]["leaves"], res[1]["leaves"]], tag)
+        if tag == "phase5a fsa":
+            per_key = framing / len(sizes)
+    return per_key
 
 
 def mesh_settings(codec, threshold):
@@ -3294,6 +3339,288 @@ def phase9c(dev):
     return sum(sum(o["launches"]) for o in out.values())
 
 
+def zoo_batch(torch, name, B, dev, gen):
+    """A seeded batch for zoo model ``name``: NHWC images or token ids,
+    and labels (per token for the language models)."""
+    V = 1000
+    if name.endswith("_lm"):
+        X = torch.randint(0, V, (B, PHASE10["seq"]), generator=gen)
+        y = torch.randint(0, V, (B, PHASE10["seq"]), generator=gen)
+    else:
+        s = 299 if name == "inceptionv3" else 224
+        X = torch.randn(B, s, s, 3, generator=gen)
+        y = torch.randint(0, V, (B,), generator=gen)
+    return X.to(dev), y.to(dev)
+
+
+def zoo_step(torch, net, table, name):
+    """The examples' train step on a zoo module: ``(leaves, X, y, rng) ->
+    (loss, gradient leaves)`` in flax layouts, train mode."""
+    from geomx_tpu_torch.models import convert
+
+    def step(leaves, X, y, rng):
+        leaves = [l.detach().requires_grad_(True) for l in leaves]
+        kw = {} if name.endswith("_lm") else {"train": True, "rng": rng}
+        logits = torch.func.functional_call(
+            net, convert.zoo_params_from_flax(table, leaves), (X,), kw)
+        logp = torch.log_softmax(logits.to(leaves[0].dtype), -1)
+        loss = -logp.gather(-1, y[..., None].long()).mean()
+        return loss, torch.autograd.grad(loss, leaves)
+
+    return step
+
+
+def step_times(torch, fn, reps, dev, warmup=2):
+    """ms of each of ``reps`` calls of ``fn`` (after ``warmup``): CUDA
+    events around the call after a synchronize on the card, the host's
+    clock on the CPU; and the losses ``fn`` returned."""
+    ms, losses = [], []
+    for i in range(warmup + reps):
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            loss = fn()
+            b.record()
+            torch.cuda.synchronize()
+            took = a.elapsed_time(b)
+        else:
+            t = time.perf_counter()
+            loss = fn()
+            took = (time.perf_counter() - t) * 1e3
+        if i >= warmup:
+            ms.append(took)
+            losses.append(float(loss.detach()))
+    return ms, losses
+
+
+def phase10a(torch, np, dev="cuda"):
+    """The zoo at published widths: parameter counts against the JAX
+    package's, the card's float32 train step against float64 on the CPU
+    from the same leaves (dropout off on both: its masks are each
+    device's own), and the step's time at batch 32."""
+    import copy
+    from unittest import mock
+
+    from geomx_tpu_torch._device import exact_cudnn
+    from geomx_tpu_torch.models import convert, zoo
+
+    if dev == "cuda":
+        exact_cudnn()
+    out = {}
+    for name in ZOO10:
+        lm = name.endswith("_lm")
+        kw = {} if lm else {"input_shape": (299, 299, 3) if
+                            name == "inceptionv3" else (224, 224, 3)}
+        net = zoo.get_model(name, num_classes=1000, **kw)
+        n = sum(p.numel() for p in net.parameters())
+        print(f"[phase10a] {name}: {n:,} parameters (the JAX package: "
+              f"{JAX_PARAMS[name]:,})", flush=True)
+        if n != JAX_PARAMS[name]:
+            fail(f"phase10a {name}: {n} parameters, the JAX package has "
+                 f"{JAX_PARAMS[name]}")
+        table = convert.zoo_leaves(net)
+        leaves = [torch.tensor(l) for l in convert.zoo_flax_leaves(net)]
+        gen = torch.Generator().manual_seed(10)
+        X, y = zoo_batch(torch, name, PHASE10["check_batch"], "cpu", gen)
+        ref = copy.deepcopy(net).double()
+        with mock.patch.object(zoo, "dropout", lambda x, *a, **k: x):
+            r_loss, r_grads = zoo_step(torch, ref, table, name)(
+                [l.double() for l in leaves], X, y, None)
+            ref = ref.to(dev)       # the same step in float64 on the card
+            d_loss, d_grads = zoo_step(torch, ref, table, name)(
+                [l.double().to(dev) for l in leaves], X.to(dev), y.to(dev),
+                None)
+            del ref
+            # the CPU's own float32 step (torch's native convolutions):
+            # how far float32 itself lands from float64 here
+            mkldnn = torch.backends.mkldnn.enabled
+            torch.backends.mkldnn.enabled = False
+            try:
+                c_loss, c_grads = zoo_step(torch, net, table, name)(
+                    leaves, X, y, None)
+            finally:
+                torch.backends.mkldnn.enabled = mkldnn
+            net = net.to(dev)
+            t_loss, t_grads = zoo_step(torch, net, table, name)(
+                [l.to(dev) for l in leaves], X.to(dev), y.to(dev), None)
+        r_loss, d_loss, t_loss, c_loss = (float(v.detach()) for v in
+                                          (r_loss, d_loss, t_loss, c_loss))
+        whole = math.sqrt(sum(float((g * g).sum()) for g in r_grads))
+        f64_worst = 0.0
+        for (path, _n, _k), g, r in zip(table, d_grads, r_grads):
+            err = float((g.cpu() - r).norm())
+            bound = PHASE10["f64_tol"] * (float(r.norm()) + whole)
+            f64_worst = max(f64_worst, err / bound)
+            if not err <= bound:
+                fail(f"phase10a {name}: float64 gradient {path} on the card "
+                     f"off by {err:.3e} from the CPU's, over {bound:.3e}")
+        if not abs(d_loss - r_loss) <= PHASE10["f64_tol"] * abs(r_loss):
+            fail(f"phase10a {name}: float64 loss {d_loss} on the card, "
+                 f"{r_loss} on the CPU")
+        worst, worst_path, err2, cpu2, within = 0.0, "", 0.0, 0.0, 0
+        for (path, _n, _k), g, c, r in zip(table, t_grads, c_grads,
+                                           r_grads):
+            err = float((g.double().cpu() - r).norm())
+            cpu = float((c.double() - r).norm())
+            err2, cpu2 = err2 + err * err, cpu2 + cpu * cpu
+            within += err <= PHASE10["grad_tol"] * float(r.norm())
+            ratio = err / max(float(r.norm()), 1e-300)
+            if ratio > worst:
+                worst, worst_path = ratio, path
+        grad_rel, cpu_rel = math.sqrt(err2) / whole, math.sqrt(cpu2) / whole
+        rel = abs(t_loss - r_loss) / abs(r_loss)
+        cpu_loss = abs(c_loss - r_loss) / abs(r_loss)
+        if not (math.isfinite(t_loss) and rel <= max(
+                PHASE10["loss_tol"], PHASE10["whole_factor"] * cpu_loss)):
+            fail(f"phase10a {name}: loss {t_loss} on the card, {r_loss} in "
+                 f"float64 on the CPU, {c_loss} in float32 there")
+        # the float32 gradient is gated where float32 can meet the bound:
+        # where the CPU's own float32 step lands within it
+        gated = cpu_rel <= PHASE10["grad_tol"]
+        if gated and not grad_rel <= max(PHASE10["grad_tol"],
+                                         PHASE10["whole_factor"] * cpu_rel):
+            fail(f"phase10a {name}: float32 gradient {grad_rel:.3e} (relative "
+                 f"norm) from float64; the CPU's float32 {cpu_rel:.3e}")
+        # the step at batch 32 (dropout on, its generator on the card)
+        Xb, yb = zoo_batch(torch, name, PHASE10["time_batch"], dev, gen)
+        dl = [l.to(dev) for l in leaves]
+        step = zoo_step(torch, net, table, name)
+        rng = torch.Generator(device=dev).manual_seed(7)
+
+        ms, losses = step_times(torch, lambda: step(dl, Xb, yb, rng)[0],
+                                PHASE10["time_reps"], dev)
+        if not all(math.isfinite(l) for l in losses):
+            fail(f"phase10a {name}: non-finite loss at batch "
+                 f"{PHASE10['time_batch']}")
+        med = statistics.median(ms)
+        unit = "sequences" if lm else "images"
+        out[name] = {"params": n, "step_ms": med, "loss_rel": rel,
+                     "grad_rel": grad_rel, "cpu_grad_rel": cpu_rel,
+                     "gated": gated}
+        print(f"[phase10a] {name}: float64 on {dev} = on the CPU (worst leaf "
+              f"at {f64_worst:.2e} of its bound); float32 loss {t_loss:.6f} "
+              f"on {dev}, {r_loss:.6f} in float64 (rel {rel:.2e}; the CPU's "
+              f"float32 {cpu_loss:.2e}); float32 gradient {grad_rel:.2e} "
+              f"from float64 (relative norm; the CPU's float32 "
+              f"{cpu_rel:.2e}; {within} of {len(table)} leaves within "
+              f"{PHASE10['grad_tol']} of their norm, the worst "
+              f"{worst_path} at {worst:.2e}; "
+              f"{'gated' if gated else 'not gated: float32 itself is off'}"
+              f"); train "
+              f"step (forward + backward) "
+              f"at batch {PHASE10['time_batch']}: median {med:.3f} ms of "
+              f"{len(ms)}, min {min(ms):.3f}, "
+              f"{PHASE10['time_batch'] / med * 1e3:.1f} {unit}/s",
+              flush=True)
+        del net, dl, Xb, yb, leaves
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase10b(torch, np, framing_per_key, dev="cuda"):
+    """examples/cnn.py --model resnet50 -dt cifar10 through live HiPS:
+    two parties x one worker, server Adam, the combined dense round."""
+    from geomx_tpu_torch.examples import cnn
+
+    tag, rounds, B = "phase10b", PHASE10["hips_rounds"], PHASE10["hips_batch"]
+    res, (wan_round, msgs) = run_feature(
+        torch, np, cnn, ["--model", "resnet50", "-dt", "cifar10"], tag,
+        rounds, dev, batch=B)
+    sizes = [l.size for l in res[0]["leaves"]]
+    if (len(sizes), sum(sizes)) != (161, PHASE10["resnet50_cifar_params"]):
+        fail(f"{tag}: {len(sizes)} leaves of {sum(sizes)} parameters, "
+             "not ResNet-50's 161 of 23,520,842")
+    payload = wan_payload(sizes, "dense")[0]
+    leg = 4 * sum(sizes)
+    # a combined round's message frames each of its keys (5a measured the
+    # framing over LeNet's 10); as phase 5 allows its codecs, up to twice
+    framing = 2 * framing_per_key * len(sizes)
+    check_replicas(np, [res[0]["leaves"], res[1]["leaves"]], tag)
+    for w in (0, 1):
+        if not all(math.isfinite(l) for l in res[w]["losses"]):
+            fail(f"{tag}: worker {w} non-finite loss {res[w]['losses']}")
+    steps = [res[w]["step_ms"][1:] for w in (0, 1)]     # round 1 warms up
+    img_s = 2 * B * (rounds - 1) / max(sum(x) for x in steps) * 1e3
+    wire = [statistics.median(res[w]["wire_ms"][1:]) for w in (0, 1)]
+    step = [statistics.median(x) for x in steps]
+    print(f"[{tag}] ResNet-50 (CIFAR stem) {len(sizes)} leaves, "
+          f"{sum(sizes):,} parameters: {leg:,} bytes a leg per worker; "
+          f"{wan_round:.1f} WAN bytes in {msgs:.2f} messages per round "
+          f"(payload {payload:,} = 4 legs, framing "
+          f"{(wan_round - payload) / msgs:.1f} bytes a message, "
+          f"{(wan_round - payload) / msgs / len(sizes):.2f} a key; 5a's "
+          f"{framing_per_key:.2f} a key)", flush=True)
+    print(f"[{tag}] per-round wire ms (combined push_pull) median "
+          f"{wire[0]:.3f} / {wire[1]:.3f}; step ms (gradients + wire) "
+          f"median {step[0]:.3f} / {step[1]:.3f}; {img_s:.1f} img/s (both "
+          f"workers); losses {[round(l, 4) for l in res[0]['losses']]}",
+          flush=True)
+    if not payload <= wan_round <= payload + msgs * framing:
+        fail(f"{tag}: {wan_round} WAN bytes per round, not the dense "
+             f"payload {payload} of the 161 leaves plus {framing:.1f} bytes "
+             f"of framing for each of {msgs:.2f} messages")
+    return {"wire_ms": wire, "step_ms": step, "img_s": img_s,
+            "wan_round": wan_round}
+
+
+def phase10c(torch, np, dev="cuda"):
+    """The records path on the card: raw CIFAR-shaped records (class =
+    dominant channel) through ImageRecordIter + ImageAugmenter (random
+    crop and mirror) + PrefetchIter into build_model_and_step("resnet18",
+    num_classes=3), Adam at lr 1e-3 (``torch.optim.Adam`` stands in for
+    optax: a yardstick). Pillow is made unimportable for the phase: raw
+    records need none."""
+    import tempfile
+    from unittest import mock
+
+    from geomx_tpu_torch.examples.utils import build_model_and_step
+    from geomx_tpu_torch.io import (ImageAugmenter, ImageRecordIter,
+                                    IRHeader, MXRecordIO, PrefetchIter,
+                                    pack_array)
+
+    B = PHASE10["record_batch"]
+    rng = np.random.RandomState(0)
+    with tempfile.TemporaryDirectory() as d, \
+            mock.patch.dict(sys.modules, {"PIL": None}):
+        path = os.path.join(d, "cifar.rec")
+        with MXRecordIO(path, "w") as w:
+            for i in range(PHASE10["records"]):
+                cls = i % 3
+                img = rng.randint(0, 64, (32, 32, 3), np.uint8)
+                img[..., cls] = rng.randint(160, 256, (32, 32), np.uint8)
+                w.write(pack_array(IRHeader(0, float(cls), i, 0), img))
+        aug = ImageAugmenter((32, 32, 3), rand_crop=True, rand_mirror=True,
+                             seed=5)
+        it = ImageRecordIter(path, (32, 32, 3), batch_size=B, shuffle=True,
+                             aug=aug, seed=5)
+        leaves, _n, grad_step, _e = build_model_and_step(
+            B, input_shape=(32, 32, 3), model="resnet18", num_classes=3,
+            device=dev)
+        params = [torch.tensor(l, device=dev) for l in leaves]
+        opt = torch.optim.Adam(params, lr=1e-3)
+        losses = []
+        for _ in range(PHASE10["record_epochs"]):
+            for X, y in PrefetchIter(it, prefetch=2):
+                loss, grads = grad_step(
+                    params, torch.as_tensor(X, device=dev),
+                    torch.as_tensor(y.astype(np.int64), device=dev))
+                for p, g in zip(params, grads):
+                    p.grad = g
+                opt.step()
+                losses.append(float(loss))
+    print(f"[phase10c] {PHASE10['records']} raw records, "
+          f"{len(losses)} Adam steps of {B} through the reader, the "
+          f"augmenter and the prefetcher: losses "
+          f"{[round(l, 4) for l in losses]}", flush=True)
+    if len(losses) != 12 or not all(math.isfinite(l) for l in losses):
+        fail(f"phase10c: {len(losses)} steps, losses {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"phase10c: the loss did not fall: {losses}")
+
+
 def main():
     try:
         import torch
@@ -3364,7 +3691,7 @@ def main():
     lap("phase4b")
     phase4b_bsc(torch, np, dense)
     lap("phase4b-bsc")
-    phase5(torch, np)
+    framing5 = phase5(torch, np)
     lap("phase5")
     mesh6a = phase6a(torch, np, fa, tb, main_path["wire_ms"])
     lap("phase6a")
@@ -3392,6 +3719,19 @@ def main():
     lap("phase9b")
     launches9c = phase9c("cuda")
     lap("phase9c")
+    # phase 10, the image-classification path: it reaches no kernel of
+    # the port (the zoo's convolutions are cuDNN's, as XLA's are in the
+    # JAX package); the counts show it launched none
+    reset([fa.LAUNCHES, tb.LAUNCHES])
+    phase10a(torch, np)
+    lap("phase10a")
+    phase10b(torch, np, framing5)
+    lap("phase10b")
+    phase10c(torch, np)
+    lap("phase10c")
+    launches10 = {**fa.LAUNCHES, **tb.LAUNCHES}
+    print(f"[phase10] kernel launches on the image-classification path: "
+          f"{launches10}", flush=True)
 
     table = [{
         "name": name, "route": "cuda", "source": SOURCE, "replaces": where,
@@ -3409,7 +3749,8 @@ def main():
             "6b_per_round": mesh6b[key], "7b": procs7b[key],
             "7c": procs7c[key], "8a": launches8[key],
             "8a_per_step": {c: n[key] for c, n in per_step8.items()},
-            "9a": {c: n[key] for c, n in launches9a.items()}},
+            "9a": {c: n[key] for c, n in launches9a.items()},
+            "10": launches10[key]},
         "d32": d32[key],
     } for key, (name, where, kernel) in KERNELS.items()]
     table.append({
@@ -3427,7 +3768,8 @@ def main():
             "6b_per_round": mesh6b["two_bit"], "7b": procs7b["two_bit"],
             "7c": procs7c["two_bit"], "8a": launches8["two_bit"],
             "9a": {c: n["two_bit"] for c, n in launches9a.items()},
-            "9b": launches9b, "9c": launches9c}})
+            "9b": launches9b, "9c": launches9c,
+            "10": launches10["two_bit"]}})
     print(card, flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

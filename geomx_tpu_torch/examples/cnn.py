@@ -5,8 +5,9 @@ Counterpart of ``examples/cnn.py``, with the same flags, roles and
 per-iteration accuracy print: the master worker ships the optimizer
 (Adam, or DCASGD with ``-dc``) to the global server and steps aside after
 init; every party worker computes LeNet's gradients on the CUDA card
-(``--cpu``: on the CPU) and sends them in one combined ``push_pull`` per
-round, whose answer is the updated parameters. In a multi-process
+(``--cpu``: on the CPU; ``--model`` picks a zoo model instead, e.g.
+``--model resnet50 -dt cifar10``) and sends them in one combined
+``push_pull`` per round, whose answer is the updated parameters. In a multi-process
 topology (``DMLC_*`` roles; infrastructure roles run ``python -m
 geomx_tpu_torch.kvstore_server``) every worker runs:
 
@@ -39,7 +40,8 @@ def parse_args(argv=None):
     parser.add_argument("-dt", "--data-type", type=str, default="mnist",
                         choices=["mnist", "fashion-mnist", "cifar10"])
     parser.add_argument("-m", "--model", type=str, default="cnn",
-                        help="cnn (the model zoo is not ported yet)")
+                        help="cnn | resnet18 | resnet34 | resnet50 | ... "
+                             "(any geomx_tpu_torch.models.get_model name)")
     parser.add_argument("-ep", "--epoch", type=int, default=5)
     parser.add_argument("-ms", "--mixed-sync", action="store_true")
     parser.add_argument("-dc", "--dcasgd", action="store_true")
@@ -57,8 +59,9 @@ def parse_args(argv=None):
 def run_worker(kv, args, device=None, on_round=None):
     """One node's part: the master ships the optimizer, inits the keys
     and returns None; a party worker trains and returns ``{"leaves",
-    "accs", "losses", "step_ms"}`` (``step_ms``: gradients plus the
-    combined round, per iteration). ``on_round(i)`` runs after round
+    "accs", "losses", "step_ms", "wire_ms"}`` (``step_ms``: gradients
+    plus the combined round, per iteration; ``wire_ms``: the combined
+    round alone). ``on_round(i)`` runs after round
     ``i``'s wire completes."""
     import numpy as np
 
@@ -84,9 +87,11 @@ def run_worker(kv, args, device=None, on_round=None):
         device=device)
     if (getattr(kv, "type", "") == "dist_sync_mesh"
             and getattr(kv, "mesh_codec", "none") != "none"
+            and args.model == "cnn"
             and not kv.is_master_worker):
         # GEOMX_MESH_CODEC: the party's gradients ride the quantized ring
-        # instead of the plain mean over the party batch
+        # instead of the plain mean over the party batch (the zoo's steps
+        # are stateful, so only the demo CNN's, as in the JAX example)
         grad_step = build_mesh_ring_step(kv, grad_step)
 
     start_epoch = 0
@@ -114,7 +119,8 @@ def run_worker(kv, args, device=None, on_round=None):
     begin_time = time.time()
     global_iters = resume_iters + 1 if args.checkpoint_prefix else 1
     measure = Measure(sub_dir=f"cnn_rank{my_rank}")
-    out = {"leaves": leaves, "accs": [], "losses": [], "step_ms": []}
+    out = {"leaves": leaves, "accs": [], "losses": [], "step_ms": [],
+           "wire_ms": []}
     print(f"Start training on {num_all_workers} workers, my rank is {my_rank}.")
     for epoch in range(start_epoch, args.epoch):
         for X, y in train_iter:
@@ -123,12 +129,15 @@ def run_worker(kv, args, device=None, on_round=None):
                 kv.notify_round(global_iters)
             t0 = time.perf_counter()
             loss, grads = step(leaves, X, y)
+            t1 = time.perf_counter()
             # combined push_pull: ONE message per server per round (the
             # ack carries the post-round params); falls back to the
             # two-op sequence under P3/TSEngine/local stores
             kv.push_pull(list(range(len(grads))), grads, out=leaves)
             kv.wait()
-            out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            t2 = time.perf_counter()
+            out["step_ms"].append((t2 - t0) * 1e3)
+            out["wire_ms"].append((t2 - t1) * 1e3)
             if on_round is not None:
                 on_round(global_iters)
 

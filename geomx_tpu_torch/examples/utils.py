@@ -6,8 +6,8 @@ so the port's workers push the same keys and arrays as the JAX
 package's), ``host_grad_step`` (one packed transfer each way per
 round, the counterpart of ``build_flat_step``), ``eval_acc`` and the
 ``Measure`` JSON reporter, and ``build_mesh_ring_step`` (the quantized
-mesh tier's gradient step). The model zoo (``model != "cnn"``) is not
-ported yet (ROADMAP queue A item 11).
+mesh tier's gradient step). ``model`` may also name any
+``geomx_tpu_torch.models.zoo.get_model`` model, as in the JAX examples.
 """
 
 from __future__ import annotations
@@ -43,13 +43,17 @@ def build_model_and_step(batch_size: int, compute_dtype=torch.float32,
     the loss stay fp32, as in the flax step. ``device=None`` is the CUDA
     card; ``batch_size`` is accepted for the JAX signature's sake. On the
     card this sets cuDNN to fp32 and deterministic algorithms for the
-    whole process (:func:`geomx_tpu_torch._device.exact_cudnn`)."""
+    whole process (:func:`geomx_tpu_torch._device.exact_cudnn`).
+
+    ``model``: "cnn" (the reference demo net) or a zoo name
+    ("resnet18", "mobilenet1.0", "vgg11", "densenet121", ...); see
+    :func:`_build_zoo` for what differs there."""
     del batch_size
-    if model != "cnn":
-        raise NotImplementedError(
-            f"model {model!r}: the model zoo is not ported yet (ROADMAP "
-            "queue A item 11)")
     from geomx_tpu_torch._device import exact_cudnn, resolve_device
+
+    if model != "cnn":
+        return _build_zoo(model, compute_dtype, num_classes, input_shape,
+                          device, init_leaves, seed)
     from geomx_tpu_torch.models.cnn import create_cnn
     from geomx_tpu_torch.models.convert import (LENET_LEAVES,
                                                 lenet_flax_leaves,
@@ -84,6 +88,69 @@ def build_model_and_step(batch_size: int, compute_dtype=torch.float32,
         return (pred == torch.as_tensor(y).long()).float().mean()
 
     return leaves, [f for f, _n, _k in LENET_LEAVES], grad_step, eval_step
+
+
+def _dropout_rng(device: torch.device, step: int) -> torch.Generator:
+    """The dropout masks' generator for train step ``step``: seed 7 with
+    the step folded in, so every step draws fresh masks and a rerun draws
+    the same ones (the JAX example folds the step into PRNGKey(7); the
+    masks themselves are torch's own)."""
+    return torch.Generator(device=device).manual_seed((7 << 32) + step)
+
+
+def _build_zoo(model: str, compute_dtype, num_classes: int, input_shape,
+               device, init_leaves, seed: int):
+    """``build_model_and_step`` for a zoo model (counterpart of the JAX
+    example's zoo branch): the CIFAR-sized stem for the resnets
+    (``small_images``), and leaves in flax order and layouts
+    (``convert.zoo_leaves``). BatchNorm running statistics live in this
+    call's module and stay WORKER-LOCAL: only the parameters travel
+    through the store, as in the reference's kvstore flow. The steps are
+    STATEFUL (the module's statistics, and a step counter that draws
+    each train step's dropout masks), so build one per worker."""
+    from geomx_tpu_torch._device import exact_cudnn, resolve_device
+    from geomx_tpu_torch.models.convert import (zoo_flax_leaves,
+                                                zoo_leaves,
+                                                zoo_params_from_flax)
+    from geomx_tpu_torch.models.zoo import get_model
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        exact_cudnn()
+    extra = {"small_images": True} if model.startswith("resnet") else {}
+    net = get_model(model, num_classes=num_classes, seed=seed,
+                    input_shape=tuple(input_shape), **extra)
+    table = zoo_leaves(net)
+    leaves = ([np.array(l, np.float32, copy=True) for l in init_leaves]
+              if init_leaves is not None else zoo_flax_leaves(net))
+    if len(leaves) != len(table):
+        raise ValueError(f"{model}: {len(table)} leaves, got {len(leaves)}")
+    net = net.to(dev)
+    box = {"step": 0}
+
+    def logits_of(leaf_list, X, train, rng):
+        params = zoo_params_from_flax(
+            table, [p.to(compute_dtype) for p in leaf_list])
+        return torch.func.functional_call(
+            net, params, (torch.as_tensor(X),),
+            {"train": train, "rng": rng})
+
+    def grad_step(leaf_list, X, y):
+        rng = _dropout_rng(dev, box["step"])
+        box["step"] += 1
+        leaf_list = [p.detach().requires_grad_(True) for p in leaf_list]
+        logp = torch.log_softmax(logits_of(leaf_list, X, True, rng).float(),
+                                 dim=-1)
+        loss = -logp.gather(-1, torch.as_tensor(y).long()[:, None]).mean()
+        grads = torch.autograd.grad(loss, leaf_list)
+        return loss.detach(), list(grads)
+
+    @torch.no_grad()
+    def eval_step(leaf_list, X, y):
+        pred = logits_of(leaf_list, X, False, None).argmax(dim=-1)
+        return (pred == torch.as_tensor(y).long()).float().mean()
+
+    return leaves, [f for f, _n, _k in table], grad_step, eval_step
 
 
 def host_grad_step(leaves: List[np.ndarray], grad_step, device):

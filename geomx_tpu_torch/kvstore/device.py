@@ -14,6 +14,7 @@ The stored values stay on the device; ``pull`` copies to the host,
 ``pull_device`` does not. The updater path keeps a host mirror of the
 values it writes, so the host-side optimizer reads the weight without a
 download; a push without an updater only drops the key's mirror.
+Row-sparse pushes and pulls scatter and gather rows on the device.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 
 from geomx_tpu_torch._device import resolve_device
 from geomx_tpu_torch.kvstore.base import KVStore, _to_numpy
+from geomx_tpu_torch.kvstore.local import gather_rows, scatter_rows
 
 __all__ = ["KVStoreDeviceAllreduce"]
 
@@ -89,6 +91,9 @@ class KVStoreDeviceAllreduce(KVStore):
                     torch.as_tensor(x, dtype=torch.float32).to(self.device)
                     for x in v])
                 merged = stacked.sum(dim=0)
+            elif torch.is_tensor(v):        # no host round trip
+                merged = v.detach().to(self.device, torch.float32,
+                                       copy=True)
             else:
                 merged = torch.tensor(_to_numpy(v), dtype=torch.float32,
                                       device=self.device)
@@ -122,6 +127,18 @@ class KVStoreDeviceAllreduce(KVStore):
         """Device-resident pull (no host copy) — the NCCL store's fast
         path."""
         return self._store[key]
+
+    def push_row_sparse(self, key, row_ids, values, priority: int = 0) -> None:
+        """Push only the touched rows of a 2-D key: they sum into a dense
+        gradient on the store's device (``index_add_``), which then
+        takes the path of a reduced ``push``."""
+        self.push(key, scatter_rows(self._shapes[key], self.device,
+                                    row_ids, values), priority)
+
+    def pull_row_sparse(self, key, row_ids, priority: int = 0) -> torch.Tensor:
+        """The requested rows of a 2-D key, gathered on the store's
+        device (``index_select``) and left there."""
+        return gather_rows(self._store[key], row_ids)
 
     def set_updater(self, updater) -> None:
         self._updater = updater

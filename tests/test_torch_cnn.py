@@ -83,8 +83,12 @@ def test_eval_acc_and_seeded_init_on_the_cpu():
     _tr, test_iter, _a, _b = tds.load_data(64, synthetic_test_size=128)
     acc = eval_acc(test_iter, leaves, es, device="cpu")
     assert 0.0 <= acc <= 1.0
-    with pytest.raises(NotImplementedError, match="item 11"):
-        build_model_and_step(8, model="resnet18", device="cpu")
+    # a zoo name builds, as in the JAX examples; an unknown one raises
+    zoo_leaves, names, _gs, _es = build_model_and_step(
+        8, model="resnet18", device="cpu")
+    assert len(zoo_leaves) == len(names) == 62
+    with pytest.raises(ValueError, match="unknown model"):
+        build_model_and_step(8, model="lenet5", device="cpu")
 
 
 def test_exact_cudnn_only_for_the_card(monkeypatch):

@@ -50,6 +50,7 @@ from geomx_tpu_torch.examples import cnn, cnn_bsc, cnn_fp16, cnn_hfa, cnn_mpq
 from geomx_tpu_torch.examples import utils as tutils
 from geomx_tpu_torch.models.convert import LENET_LEAVES
 from test_torch_hips import TIMEOUT, MixedHiPS
+from torch_parity_kit import assert_adam_leaves_close, near_eps, record_grads
 
 OPT = {"jax": jopt, "torch": topt}
 
@@ -360,19 +361,24 @@ def test_example_loop_matches_the_jax_example(name, jax_init, monkeypatch,
     monkeypatch.setenv("MXNET_KVSTORE_HFA_K1", "2")
     monkeypatch.setenv("MXNET_KVSTORE_SIZE_LOWER_BOUND", "20000")
     argv = argv + ["-bs", str(BATCH)]
+    jax_grads = record_grads(jax_mod, monkeypatch)
     want = _jax_example(jax_mod, argv, topo_kw, monkeypatch, tmp_path)
     got = _port_example(port_mod, argv, topo_kw, jax_init, monkeypatch,
                         tmp_path)
     # the leaves the loop starts from: cnn_fp16 pulls them through fp16
     wire = np.float16 if port_mod is cnn_fp16 else np.float32
     init = [l.astype(wire) for l in jax_init]
+    # every example steps Adam at lr 1e-3 once an iteration; gradients
+    # near Adam's eps take a bound of their own (ROADMAP, divergences)
+    near = near_eps(jax_grads)
     for w in (0, 1):
         last, prev = want[w][-1], want[w][-2]
         assert len(got[w]["leaves"]) == len(last) == 10
         for g, r, i in zip(got[w]["leaves"], last, init):
             assert g.dtype == np.float32 and g.shape == r.shape
             assert not np.array_equal(g, i)          # it trained
-            np.testing.assert_allclose(g, r, atol=tol, rtol=tol)
+        assert_adam_leaves_close(got[w]["leaves"], last, near, tol,
+                                 lr=1e-3, steps=int(argv[1]))
         assert _disp_err(got[w]["leaves"], last, init) <= disp_tol
         # the check's power: the JAX loop one step earlier, or its steps
         # negated, fail it

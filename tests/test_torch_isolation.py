@@ -53,6 +53,18 @@ def test_import_leaves_jax_out_of_the_process():
         "import geomx_tpu_torch.examples.cnn_esync\n"
         "import geomx_tpu_torch.examples.cnn_bsc_device\n"
         "import geomx_tpu_torch.kvstore_server\n"
+        "import geomx_tpu_torch.metric\n"
+        "import geomx_tpu_torch.initializer\n"
+        "import geomx_tpu_torch.io\n"
+        "import geomx_tpu_torch.io.recordio\n"
+        "import geomx_tpu_torch.io.iterators\n"
+        "import geomx_tpu_torch.io.image\n"
+        "import geomx_tpu_torch.models\n"
+        "import geomx_tpu_torch.models.layers\n"
+        "import geomx_tpu_torch.models.resnet\n"
+        "import geomx_tpu_torch.models.zoo\n"
+        "import geomx_tpu_torch.models.rnn\n"
+        "import geomx_tpu_torch.models.convert\n"
         f"print(sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r}))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,

@@ -126,3 +126,66 @@ def assert_same(got, want):
             a, b = np.asarray(a), np.asarray(b)
             assert a.dtype == b.dtype and a.shape == b.shape
             np.testing.assert_array_equal(a, b)
+
+
+# -- Adam from the same leaves in two frameworks ----------------------------
+
+# Adam's epsilon in the examples (the optimizers' default)
+ADAM_EPS = 1e-8
+# a gradient this close to zero, yet not zero, leaves Adam's first steps
+# m / (sqrt(v) + eps) at the mercy of its last bits: the two frameworks'
+# float reorderings (about 1e-7 of a leaf's largest gradient) move such a
+# step by a few percent of the learning rate
+NEAR_EPS = 100 * ADAM_EPS
+# at most this share of a run's coordinates may be near eps, or the
+# per-coordinate bound would carry the check
+NEAR_EPS_SHARE = 1e-2
+
+
+def record_grads(mod, monkeypatch, inits=None):
+    """Keep every gradient list that the grad_step of the JAX example
+    module ``mod``'s ``build_model_and_step`` returns (all workers, all
+    rounds), as numpy arrays, in the list this returns; and each built
+    leaf list in ``inits``, when given."""
+    real, kept, lock = mod.build_model_and_step, [], threading.Lock()
+
+    def build(*args, **kw):
+        leaves, treedef, grad_step, eval_step = real(*args, **kw)
+        if inits is not None:
+            inits.append([np.array(l) for l in leaves])
+
+        def step(*step_args):
+            loss, grads = grad_step(*step_args)
+            with lock:
+                kept.append([np.array(g) for g in grads])
+            return loss, grads
+
+        return leaves, treedef, step, eval_step
+
+    monkeypatch.setattr(mod, "build_model_and_step", build)
+    return kept
+
+
+def near_eps(grads):
+    """Per leaf, the coordinates whose gradient was non-zero and below
+    NEAR_EPS in any of the recorded ``grads`` (a list of leaf lists).
+    A gradient that is exactly zero (a dead ReLU) is zero in both
+    frameworks and is no such coordinate."""
+    out = []
+    for per_leaf in zip(*grads):
+        a = np.abs(np.stack(per_leaf))
+        out.append(((a > 0) & (a < NEAR_EPS)).any(axis=0))
+    return out
+
+
+def assert_adam_leaves_close(got, want, near, tol, lr, steps):
+    """``got`` against ``want`` leaf by leaf: every coordinate within
+    ``tol`` (atol = rtol), except those in ``near`` (see ``near_eps``),
+    which may differ by what ``steps`` Adam steps can move a coordinate,
+    lr each, and by no more. No leaf is bounded as a whole."""
+    total = sum(int(m.size) for m in near)
+    assert sum(int(m.sum()) for m in near) <= NEAR_EPS_SHARE * total
+    for g, r, m in zip(got, want, near):
+        np.testing.assert_allclose(g[~m], r[~m], atol=tol, rtol=tol)
+        np.testing.assert_allclose(g[m], r[m], rtol=0,
+                                   atol=max(tol, lr * steps))

@@ -33,14 +33,20 @@ def _twin_name(name: str) -> str:
     return f"_port_twin_{name}"
 
 
-def twin(name: str) -> types.ModuleType:
-    """``tests/<name>.py`` run against the port (cached per process)."""
+def twin(name: str, subs=()) -> types.ModuleType:
+    """``tests/<name>.py`` run against the port (cached per process).
+    ``subs``: ``(old, new)`` text replacements made after the renaming,
+    for a name the port does not have (say, a flax adapter); each must
+    match, and none may add or remove a line."""
     mod_name = _twin_name(name)
     if mod_name in sys.modules:
         return sys.modules[mod_name]
     path = TESTS / f"{name}.py"
     src = _PKG.sub("geomx_tpu_torch", path.read_text())
     src = _TOPO.sub('InProcessHiPS(device="cpu", ', src)
+    for old, new in subs:
+        assert old in src and old.count("\n") == new.count("\n"), old
+        src = src.replace(old, new)
     for dep in sorted(set(m.group(2) for m in _SIBLING.finditer(src))):
         if _PKG.search((TESTS / f"{dep}.py").read_text()):
             twin(dep)
@@ -59,12 +65,12 @@ def twin(name: str) -> types.ModuleType:
 
 
 def export(namespace: dict, name: str, prefix: str = "",
-           only=None, skip=()) -> list:
-    """Bind ``twin(name)``'s ``test_*`` functions (``only`` those, when
-    given, less ``skip``), its fixtures and its ``pytestmark`` into
+           only=None, skip=(), subs=()) -> list:
+    """Bind ``twin(name, subs)``'s ``test_*`` functions (``only`` those,
+    when given, less ``skip``), its fixtures and its ``pytestmark`` into
     ``namespace``; a test keeps its name after ``test_`` + ``prefix``.
     Returns the names bound."""
-    mod = twin(name)
+    mod = twin(name, subs)
     bound = []
     for attr, obj in vars(mod).items():
         if attr.startswith("test_") and callable(obj):
