@@ -162,6 +162,27 @@ seq_len=64); c.BATCH = 2; c.PHASE9['slice_bytes'] = 16384;
 c.phase9a(torch, numpy, fa, tb, None, 'cpu'); c.phase9b(torch, numpy,
 tb, 'cpu'); c.phase9c('cpu')"`` (~45 s).
 
+Phase 11 is a party over several processes (``torch.distributed``,
+gloo; each rank's launches counted in its own process from zero). 11a
+runs ``geomx_tpu_torch/scripts/run_mesh_multihost.sh`` with 2 and with
+4 processes, every mesh codec in turn at n = 1<<16: the group
+forms, one global worker, every process's output bit-identical to every
+other's and to the one-process ring on a ``PartyMesh`` of the same P
+(none within 1e-6), ``two_bit`` launched in every process under 2bit.
+11b is phase 3d's configuration with each of its two ranks a process
+(``--party-rank``): the 59M decoder, 3d's batches and warm-up, 3 counted
+steps of local grads, the 2-bit ring across the processes and SGD; per
+process and step 8 launches of each flash kernel and 2 of ``two_bit``,
+the split local grads / quantize / D2H + gloo + H2D / dequantize /
+apply, the ranks identical and their parameters equal to 3d's after as
+many steps, bit for bit. 11c is 7c's recipe with ``MESH_PROCS=2`` (12
+processes): the four ranks' accuracies in lockstep and equal to 7c's,
+their parameter digests equal to each other and to 7c's, every role's
+exit code. On the CPU: ``phase11a(..., dev="cpu")`` and
+``phase11c("cpu", accs, digest)`` as they are, ``phase11b(np, losses,
+digest, dev="cpu")`` at a small ``MODEL`` given the losses and the
+digest of 3d's steps at that size on the CPU.
+
 Exits non-zero without a card, outside a checkout, or when any check
 fails. The line before the last is the kernel table as JSON; the last is
 ``{"ok": true, "device": {...}}``.
@@ -312,6 +333,18 @@ PHASE10 = dict(check_batch=2, time_batch=32, time_reps=10, seq=64,
                loss_tol=1e-4, grad_tol=1e-3, f64_tol=1e-5, whole_factor=4,
                hips_rounds=10, hips_batch=32, resnet50_cifar_params=23_520_842,
                records=96, record_epochs=4, record_batch=32)
+# phase 11: a party over several processes (torch.distributed, gloo).
+# 11a: run_mesh_multihost.sh at the JAX script's n with 2 and 4
+# processes; none_tol: the all-reduce against the one-process sum, as a
+# share of the largest magnitude. 11b: phase 3d's party, each rank a
+# process, `steps` counted steps after 3d's warm-up: the same
+# computation on the same card as 3d's, so the parameters after them
+# must equal 3d's after as many steps bit for bit; loss_tol: the largest
+# gap of a step's mean loss from 3d's (3d averages the ranks' float32
+# losses in float64, 11b in float32: half an ulp of a loss near 11 is
+# 5e-7). timeout: per topology, a hung rank fails the phase
+PHASE11 = dict(sizes=(2, 4), n=1 << 16, none_tol=1e-6, timeout=240, steps=3,
+               loss_tol=1e-5)
 TF8 = []     # extra train_transformer flags (a CPU rehearsal's tiny model)
 MOE8 = []    # extra train_moe flags
 
@@ -965,7 +998,9 @@ def phase3d(torch, np, fa, tb, qc, pmesh):
     """The 59M transformer as a 2-rank party: local grads through the
     flash kernels, the flattened (2, N) gradient through one 2-bit ring
     (mean), SGD on the replicated parameters. Returns the two_bit
-    launches of the STEPS counted steps."""
+    launches of the STEPS counted steps, each step's mean loss over the
+    ranks and the digest of the parameters after PHASE11["steps"] of
+    them (phase 11b's reference)."""
     from geomx_tpu_torch.examples.transformer_bsc_device import synth_batch
     from geomx_tpu_torch.models.transformer import (Transformer,
                                                     make_attention)
@@ -1022,10 +1057,12 @@ def phase3d(torch, np, fa, tb, qc, pmesh):
         for key in c:
             c[key] = 0
     losses, per_step, launches = [], [], []
-    first = None
-    for toks in batches[:STEPS]:
+    first = digest11 = None
+    for i, toks in enumerate(batches[:STEPS]):
         before = {k: v for c in counters for k, v in c.items()}
         loss, ms, stack, out = step(toks, red)
+        if i + 1 == PHASE11["steps"]:
+            digest11 = param_digest(tr.params)
         launches.append({k: v - before[k] for c in counters
                          for k, v in c.items()})
         losses.append(loss)
@@ -1067,7 +1104,14 @@ def phase3d(torch, np, fa, tb, qc, pmesh):
         fail(f"threshold {PARTY_THRESHOLD} codes only {share} of step 1")
     profile_round(torch, lambda: step(batches[0], red)[1], "phase3d profile",
                   PARTY * MODEL["depth"])
-    return total["two_bit"]
+    return total["two_bit"], [float(np.mean(l)) for l in losses], digest11
+
+
+def param_digest(params):
+    """The first 16 hex digits of the sha256 of the parameters' float32
+    bytes."""
+    return hashlib.sha256(b"".join(p.detach().float().cpu().numpy().tobytes()
+                                   for p in params)).hexdigest()[:16]
 
 
 def medians(timed):
@@ -2503,7 +2547,7 @@ def phase7c(dev):
     if dev == "cuda" and (min(launches) == 0 or len(set(launches)) != 1):
         fail(f"phase7c: two_bit launches per party worker {launches}")
     return {key: sum(r["launches"][key] for r in reps)
-            for key in (*KERNELS, "two_bit")}
+            for key in (*KERNELS, "two_bit")}, accs[0], reps[0]["digest"]
 
 
 def phase7d(dev):
@@ -3621,6 +3665,290 @@ def phase10c(torch, np, dev="cuda"):
         fail(f"phase10c: the loss did not fall: {losses}")
 
 
+PHASE11_TAG = "phase11b_rank "      # the line a --party-rank process ends with
+
+
+def phase11a(torch, np, qc, pmesh, dev="cuda"):
+    """geomx_tpu_torch/scripts/run_mesh_multihost.sh with 2 and then 4
+    processes, every codec in turn in one group, n = 1<<16 (the
+    JAX script's): every process's output bit-identical to every other's
+    and to the one-process QuantRingReducer on a PartyMesh of the same P
+    fed the same seeded rows (none: within PHASE11["none_tol"] of the
+    largest magnitude), two_bit launched in every process under 2bit.
+    Returns the two_bit launches of every process, by P."""
+    import re
+
+    P11 = PHASE11
+    n = P11["n"]
+
+    def run(P):
+        tag = f"11a-P{P}"
+        out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "logs", "chip_smoke", f"{tag}-out")
+        shutil.rmtree(out_dir, ignore_errors=True)
+        os.makedirs(out_dir)
+        logs = launch(tag, ["bash",
+                            "geomx_tpu_torch/scripts/run_mesh_multihost.sh",
+                            str(P)], dev, P11["timeout"],
+                      env={"COORD": f"127.0.0.1:{free_ports(1)[0]}",
+                           "CODECS": " ".join(MESH_CODECS), "N": str(n),
+                           "OUT_DIR": out_dir})
+        return logs["foreground"], out_dir
+
+    results = {P: run(P) for P in P11["sizes"]}
+    launches = {}
+    for P, (text, out_dir) in results.items():
+        for line in text.splitlines():
+            if line.startswith("proc ") or line.startswith("==="):
+                print(f"[phase11a P={P}] {line}", flush=True)
+        if len(re.findall(r"global_worker=True", text)) != 1:
+            fail(f"phase11a P={P}: not exactly one global worker")
+        rows = np.stack([np.random.RandomState(r).randn(1, n).astype(
+            np.float32)[0] for r in range(P)])
+        mesh = pmesh.make_party_mesh(P, device=dev)
+        for codec in MESH_CODECS:
+            want = qc.QuantRingReducer(mesh, codec, n, mean=True).reduce(
+                torch.from_numpy(rows).to(dev))[0].cpu().numpy()
+            got = [np.load(os.path.join(out_dir, f"proc{r}_{codec}.npy"))
+                   for r in range(P)]
+            if any(not np.array_equal(g, got[0]) for g in got):
+                fail(f"phase11a P={P} {codec}: the processes' outputs differ")
+            err = float(np.abs(got[0] - want).max())
+            if codec == "none":
+                if err > P11["none_tol"] * float(np.abs(want).max()):
+                    fail(f"phase11a P={P} none: {err} from one process's")
+            elif err != 0.0:
+                fail(f"phase11a P={P} {codec}: {err} from the one-process "
+                     "ring, not bit for bit")
+            print(f"[phase11a P={P}] {codec}: {P} processes bit-identical, "
+                  f"max |process - one-process ring| {err}", flush=True)
+        counts = [int(c) for c in
+                  re.findall(r"codec=2bit .* two_bit=(\d+)", text)]
+        print(f"[phase11a P={P}] two_bit launches per process under 2bit: "
+              f"{counts}", flush=True)
+        if len(counts) != P or (dev == "cuda" and min(counts) == 0):
+            fail(f"phase11a P={P}: two_bit launches {counts}")
+        launches[P] = counts
+    return launches
+
+
+def party_rank(argv):
+    """``chip_smoke.py --party-rank <json>``: one rank of 11b's party,
+    this process one of its ranks (the GEOMX_MESH_* settings in the
+    environment): phase 3d's model, batches and warm-up, then the counted
+    steps through ``DataParallelTrainer.step`` with the 2-bit ring across
+    the processes. Prints one JSON line: rank, losses, launches and the
+    split of each step, and the sha256 of the final parameters."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    from geomx_tpu_torch import config as cfg_mod
+    from geomx_tpu_torch.examples.transformer_bsc_device import synth_batch
+    from geomx_tpu_torch.kvstore.mesh_party import maybe_init_multihost
+    from geomx_tpu_torch.models.transformer import (Transformer,
+                                                    make_attention)
+    from geomx_tpu_torch.ops import flash_attention as fa
+    from geomx_tpu_torch.ops import two_bit as tb
+    from geomx_tpu_torch.parallel import mesh as pmesh
+    from geomx_tpu_torch.parallel import quant_collectives as qc
+    from geomx_tpu_torch.parallel.train_step import DataParallelTrainer
+
+    a = json.loads(argv[0])
+    model_cfg, dev = a["model"], a["dev"]
+    if not maybe_init_multihost(cfg_mod.load()):
+        fail("party rank: the GEOMX_MESH_* settings formed no group")
+    t = time.perf_counter()
+    mesh = pmesh.make_party_mesh(0, device=dev)
+    model = Transformer(vocab=model_cfg["vocab"], dim=model_cfg["dim"],
+                        depth=model_cfg["depth"], heads=model_cfg["heads"],
+                        max_len=model_cfg["seq_len"],
+                        attn_fn=make_attention("auto"),
+                        compute_dtype=torch.bfloat16,
+                        generator=torch.Generator().manual_seed(42))
+    tr = DataParallelTrainer(model, torch.optim.SGD(model.parameters(),
+                                                    lr=a["lr"]),
+                             mesh, num_classes=model_cfg["vocab"])
+    n = sum(p.numel() for p in tr.params)
+    rng = np.random.default_rng(4321)
+    batches = [synth_batch(rng, a["batch"], model_cfg["seq_len"],
+                           model_cfg["vocab"])
+               for _ in range(a["warm_index"] + 1)]
+    # phase 3d's warm-up step on a throwaway reducer: the counted run
+    # starts at zero residual from the same parameters as 3d's
+    warm = batches[a["warm_index"]]
+    tr.step(warm[:, :-1], warm[:, 1:], reducer=qc.QuantRingReducer(
+        mesh, "2bit", n, mean=True, threshold=a["threshold"]))
+    red = qc.QuantRingReducer(mesh, "2bit", n, mean=True,
+                              threshold=a["threshold"])
+    setup = time.perf_counter() - t
+    counters = [fa.LAUNCHES, tb.LAUNCHES]
+    reset(counters)
+    losses, launches, splits = [], [], []
+    for toks in batches[:a["steps"]]:
+        before = {k: v for c in counters for k, v in c.items()}
+        timings = {}
+        losses.append(tr.step(toks[:, :-1], toks[:, 1:], reducer=red,
+                              timings=timings))
+        launches.append({k: v - before[k] for c in counters
+                         for k, v in c.items()})
+        splits.append({k: round(v * 1e3, 3) for k, v in timings.items()})
+    digest = param_digest(tr.params)
+    finite = all(bool(torch.isfinite(p).all()) for p in tr.params)
+    print(PHASE11_TAG + json.dumps({
+        "rank": mesh.rank, "size": mesh.size, "device": str(mesh.device),
+        "params": n, "losses": losses, "launches": launches,
+        "split_ms": splits, "digest": digest, "finite": finite,
+        "setup_s": round(setup, 1),
+        "wire_bytes_per_round": red.wire_bytes_per_round()}), flush=True)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def phase11b(np, losses3d, digest3d, dev="cuda"):
+    """Phase 3d's configuration with each of its two ranks a process of
+    its own: the 59M decoder at full width, phase 3d's batches (8 a
+    step, 4 per rank), its warm-up step, then PHASE11["steps"] counted
+    steps of local grads, the 2-bit ring across the processes
+    (threshold PARTY_THRESHOLD, mean) and SGD. Checks the launches per
+    process and step (MODEL["depth"] of each flash kernel, PARTY
+    two_bit: one per hop's quantize), the ranks' losses and parameters
+    identical, their parameters equal to phase 3d's one-process party's
+    after as many steps from the same seeds (``digest3d``), and the
+    losses within PHASE11["loss_tol"] of 3d's. Returns the launches per
+    process per step."""
+    import signal
+
+    P11 = PHASE11
+    arg = json.dumps({"model": MODEL, "dev": dev, "lr": PARTY_LR,
+                      "batch": BATCH, "steps": P11["steps"],
+                      "warm_index": STEPS, "threshold": PARTY_THRESHOLD})
+    coord = f"127.0.0.1:{free_ports(1)[0]}"
+    t = time.perf_counter()
+    procs = []
+    for r in range(PARTY):
+        env = dict(os.environ, GEOMX_MESH_COORDINATOR=coord,
+                   GEOMX_MESH_NUM_PROCS=str(PARTY), GEOMX_MESH_PROC_ID=str(r))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--party-rank", arg],
+            env=env, text=True, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, start_new_session=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(1.0, P11["timeout"] - (time.perf_counter() - t)))
+                [0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            os.killpg(p.pid, signal.SIGKILL)
+        for p in procs:
+            print(p.communicate()[0][-3000:], file=sys.stderr)
+        fail(f"phase11b: the party did not finish in {P11['timeout']} s")
+    reps = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        found = [l for l in out.splitlines() if l.startswith(PHASE11_TAG)]
+        if p.returncode != 0 or len(found) != 1:
+            print(out[-4000:], file=sys.stderr)
+            fail(f"phase11b: rank process {r} exited {p.returncode}")
+        reps.append(json.loads(found[0][len(PHASE11_TAG):]))
+    wall = time.perf_counter() - t
+    want = {"two_bit": PARTY, **{k: MODEL["depth"] for k in KERNELS}}
+    for rep in reps:
+        print(f"[phase11b] rank {rep['rank']} of {rep['size']} on "
+              f"{rep['device']}: {rep['params']} params, set-up + warm-up "
+              f"{rep['setup_s']} s, losses {rep['losses']}, parameters "
+              f"sha256 {rep['digest']}", flush=True)
+        for i, (counts, split) in enumerate(zip(rep["launches"],
+                                                rep["split_ms"])):
+            print(f"[phase11b] rank {rep['rank']} step {i + 1}: launches "
+                  f"{counts}; local_grads {split['local_grads']} ms, "
+                  f"quantize {split['quantize']}, D2H + gloo + H2D "
+                  f"{split['hop']}, dequantize {split['dequantize']}, "
+                  f"apply {split['apply']}", flush=True)
+            if dev == "cuda" and counts != want:
+                fail(f"phase11b rank {rep['rank']} step {i + 1}: launches "
+                     f"{counts}, expected {want}")
+        if not rep["finite"] or not all(math.isfinite(v)
+                                        for v in rep["losses"]):
+            fail(f"phase11b rank {rep['rank']}: non-finite")
+    if any(r["losses"] != reps[0]["losses"] or r["digest"] != reps[0]["digest"]
+           for r in reps):
+        fail("phase11b: the ranks' losses or parameters differ")
+    gaps = [abs(a - b) for a, b in zip(reps[0]["losses"], losses3d)]
+    print(f"[phase11b] losses {reps[0]['losses']} against phase 3d's one-"
+          f"process party {losses3d[:len(gaps)]}: largest gap {max(gaps)} "
+          f"(bound {P11['loss_tol']}); parameters sha256 "
+          f"{reps[0]['digest']}, 3d's after {P11['steps']} steps "
+          f"{digest3d}; {PARTY} processes, {wall:.1f} s", flush=True)
+    if max(gaps) > P11["loss_tol"]:
+        fail(f"phase11b: losses {max(gaps)} from phase 3d's")
+    if reps[0]["digest"] != digest3d:
+        fail(f"phase11b: parameters {reps[0]['digest']} after "
+             f"{P11['steps']} steps, phase 3d's {digest3d}")
+    return [r["launches"] for r in reps]
+
+
+def phase11c(dev, accs7c, digest7c):
+    """Phase 7c's recipe with MESH_PROCS=2: LeNet, 2 parties x 2 rank
+    processes (12 processes), GEOMX_MESH_CODEC=2bit at 7c's threshold and
+    rounds. Every rank prints the accuracy: the four must be in
+    lockstep, their parameters equal, both equal to 7c's (``accs7c``,
+    ``digest7c``: the same recipe with each party one process), two_bit
+    launched in each, every role's exit code 0. Returns the launches
+    summed over the ranks."""
+    import re
+
+    P = PHASE7
+    root = os.path.dirname(os.path.abspath(__file__))
+    codes_file = os.path.join(root, "logs", "chip_smoke", "11c-exit-codes")
+    if os.path.exists(codes_file):
+        os.remove(codes_file)
+    mport = free_ports(2)
+    logs = launch("11c", ["bash", "geomx_tpu_torch/scripts/run_mesh_hips.sh",
+                          "--max-iters", str(P["mesh_rounds"]), "-bs",
+                          str(2 * LENET["batch"])], dev, P["timeout_short"],
+                  env={"MESH_PROCS": "2", "GEOMX_MESH_CODEC": "2bit",
+                       "GEOMX_WIRE_2BIT_THRESHOLD":
+                           repr(MESH6["lenet_2bit_threshold"]),
+                       "MPORT_A": str(mport[0]), "MPORT_B": str(mport[1]),
+                       "EXIT_CODES_FILE": codes_file})
+    ranks = {"party 0 rank 0": logs["mesh_w0.log"],
+             "party 0 rank 1": logs["mesh_w0_p1.log"],
+             "party 1 rank 0": logs["foreground"],
+             "party 1 rank 1": logs["mesh_w1_p1.log"]}
+    reps = {who: report(text, "11c", who, dev) for who, text in ranks.items()}
+    report(logs["mesh_master.log"], "11c", "master", dev)
+    accs = [[float(a) for _i, a in re.findall(ACC_RE, t)]
+            for t in ranks.values()]
+    lockstep(accs, "11c", "per-round accuracies")
+    lockstep([[r["digest"]] for r in reps.values()], "11c",
+             "parameter digests")
+    with open(codes_file) as f:
+        codes = [line.split()[-1] for line in f.read().split("\n") if line]
+    launches = [r["launches"]["two_bit"] for r in reps.values()]
+    print(f"[phase11c] 2 mesh parties x 2 rank processes (2bit ring), "
+          f"{len(codes)} processes, exit codes {codes}; {P['mesh_rounds']} "
+          f"rounds: accuracies {accs[0]} on all four ranks; phase 7c's "
+          f"(each party one process) {accs7c}; parameters sha256 "
+          f"{reps['party 0 rank 0']['digest']}, 7c's {digest7c}; two_bit "
+          f"launches per rank {launches}", flush=True)
+    if len(codes) != 12 or any(c != "0" for c in codes):
+        fail(f"phase11c: exit codes {codes}")
+    if len(accs[0]) != P["mesh_rounds"]:
+        fail(f"phase11c: {len(accs[0])} rounds, not {P['mesh_rounds']}")
+    if accs[0] != accs7c:
+        fail(f"phase11c: accuracies {accs[0]}, phase 7c's {accs7c}")
+    if reps["party 0 rank 0"]["digest"] != digest7c:
+        fail(f"phase11c: parameters {reps['party 0 rank 0']['digest']}, "
+             f"phase 7c's {digest7c}")
+    if dev == "cuda" and (min(launches) == 0 or len(set(launches)) != 1):
+        fail(f"phase11c: two_bit launches per rank {launches}")
+    return {key: sum(r["launches"][key] for r in reps.values())
+            for key in (*KERNELS, "two_bit")}
+
+
 def main():
     try:
         import torch
@@ -3683,7 +4011,7 @@ def main():
     tb_ms, tb_plain, tb_dev, tb_bound = phase3a(torch, tb, pmesh, n_params)
     phase3b(torch, np, qc, pmesh)
     phase3c(torch, np, qc, pmesh)
-    tb_launches = phase3d(torch, np, fa, tb, qc, pmesh)
+    tb_launches, losses3d, digest3d = phase3d(torch, np, fa, tb, qc, pmesh)
     lap("phase3")
     main_path = phase4a(torch, np, fa, tb)
     lap("phase4a")
@@ -3701,7 +4029,7 @@ def main():
     lap("phase7a")
     procs7b = phase7b("cuda", dense)
     lap("phase7b")
-    procs7c = phase7c("cuda")
+    procs7c, accs7c, digest7c = phase7c("cuda")
     lap("phase7c")
     phase7d("cuda")
     lap("phase7d")
@@ -3732,6 +4060,14 @@ def main():
     launches10 = {**fa.LAUNCHES, **tb.LAUNCHES}
     print(f"[phase10] kernel launches on the image-classification path: "
           f"{launches10}", flush=True)
+    # phase 11, a party over several processes: every rank's launches
+    # are counted in its own process, from zero
+    launches11a = phase11a(torch, np, qc, pmesh)
+    lap("phase11a")
+    launches11b = phase11b(np, losses3d, digest3d)
+    lap("phase11b")
+    launches11c = phase11c("cuda", accs7c, digest7c)
+    lap("phase11c")
 
     table = [{
         "name": name, "route": "cuda", "source": SOURCE, "replaces": where,
@@ -3750,7 +4086,10 @@ def main():
             "7c": procs7c[key], "8a": launches8[key],
             "8a_per_step": {c: n[key] for c, n in per_step8.items()},
             "9a": {c: n[key] for c, n in launches9a.items()},
-            "10": launches10[key]},
+            "10": launches10[key],
+            "11b_per_process_step": [[c[key] for c in rank]
+                                     for rank in launches11b],
+            "11c": launches11c[key]},
         "d32": d32[key],
     } for key, (name, where, kernel) in KERNELS.items()]
     table.append({
@@ -3769,7 +4108,11 @@ def main():
             "7c": procs7c["two_bit"], "8a": launches8["two_bit"],
             "9a": {c: n["two_bit"] for c, n in launches9a.items()},
             "9b": launches9b, "9c": launches9c,
-            "10": launches10["two_bit"]}})
+            "10": launches10["two_bit"],
+            "11a_per_process": {f"P{P}": c for P, c in launches11a.items()},
+            "11b_per_process_step": [[c["two_bit"] for c in rank]
+                                     for rank in launches11b],
+            "11c": launches11c["two_bit"]}})
     print(card, flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3781,5 +4124,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--worker"]:
         worker_mode(sys.argv[2:])
+    elif sys.argv[1:2] == ["--party-rank"]:
+        party_rank(sys.argv[2:])
     else:
         sys.exit(main())

@@ -18,6 +18,12 @@ With ``GEOMX_PARTY_MESH=1`` the same launch runs the mesh-party tier:
 trains on the party's batch over a mesh of ``GEOMX_PARTY_MESH_SIZE``
 ranks, and with a ``GEOMX_MESH_CODEC`` the ranks' gradients meet in the
 quantized ring instead of the plain mean (``build_mesh_ring_step``).
+With the ``GEOMX_MESH_*`` settings the party's ranks are processes
+(``scripts/hips_env.sh`` ``MESH_PROCS``): each computes its own rows of
+the party batch, the ring (or, with no codec, the group's all-reduce)
+runs across them, only rank 0 speaks the van, and the others take the
+parameters it pulls by the store's broadcast; every rank prints the
+accuracy.
 
 ``run_worker(kv, args, device)`` is the body each node runs once its
 store exists, so an ``InProcessHiPS`` can drive the same loop.
@@ -71,7 +77,8 @@ def run_worker(kv, args, device=None, on_round=None):
                                                 build_mesh_ring_step,
                                                 build_model_and_step,
                                                 eval_acc, host_grad_step,
-                                                init_and_pull, load_data)
+                                                init_and_pull, load_data,
+                                                process_party, sync_leaves)
 
     if kv.is_master_worker:
         opt = (gx_opt.DCASGD if args.dcasgd else gx_opt.Adam)(
@@ -85,14 +92,19 @@ def run_worker(kv, args, device=None, on_round=None):
     leaves, _names, grad_step, eval_step = build_model_and_step(
         args.batch_size, input_shape=input_shape, model=args.model,
         device=device)
+    procs = process_party(kv)
     if (getattr(kv, "type", "") == "dist_sync_mesh"
-            and getattr(kv, "mesh_codec", "none") != "none"
+            and (getattr(kv, "mesh_codec", "none") != "none" or procs)
             and args.model == "cnn"
             and not kv.is_master_worker):
         # GEOMX_MESH_CODEC: the party's gradients ride the quantized ring
         # instead of the plain mean over the party batch (the zoo's steps
-        # are stateful, so only the demo CNN's, as in the JAX example)
+        # are stateful, so only the demo CNN's, as in the JAX example);
+        # over processes every rank takes its own rows
         grad_step = build_mesh_ring_step(kv, grad_step)
+    elif procs:
+        raise NotImplementedError(
+            f"a party over processes runs the demo CNN, not {args.model!r}")
 
     start_epoch = 0
     resume_iters = 0
@@ -118,7 +130,8 @@ def run_worker(kv, args, device=None, on_round=None):
 
     begin_time = time.time()
     global_iters = resume_iters + 1 if args.checkpoint_prefix else 1
-    measure = Measure(sub_dir=f"cnn_rank{my_rank}")
+    measure = Measure(sub_dir=f"cnn_rank{my_rank}"
+                      + (f"_mesh{kv.mesh.rank}" if procs else ""))
     out = {"leaves": leaves, "accs": [], "losses": [], "step_ms": [],
            "wire_ms": []}
     print(f"Start training on {num_all_workers} workers, my rank is {my_rank}.")
@@ -133,8 +146,10 @@ def run_worker(kv, args, device=None, on_round=None):
             # combined push_pull: ONE message per server per round (the
             # ack carries the post-round params); falls back to the
             # two-op sequence under P3/TSEngine/local stores
-            kv.push_pull(list(range(len(grads))), grads, out=leaves)
-            kv.wait()
+            if getattr(kv, "is_global_worker", True):
+                kv.push_pull(list(range(len(grads))), grads, out=leaves)
+                kv.wait()
+            sync_leaves(kv, leaves)
             t2 = time.perf_counter()
             out["step_ms"].append((t2 - t0) * 1e3)
             out["wire_ms"].append((t2 - t1) * 1e3)
@@ -152,7 +167,8 @@ def run_worker(kv, args, device=None, on_round=None):
                 measure.dump()
                 return out
             global_iters += 1
-        if args.checkpoint_prefix and my_rank == 0:
+        if args.checkpoint_prefix and my_rank == 0 and \
+                getattr(kv, "is_global_worker", True):
             checkpoint.save_checkpoint(args.checkpoint_prefix, epoch + 1,
                                        [np.asarray(l) for l in leaves],
                                        metadata={"iters": global_iters - 1})

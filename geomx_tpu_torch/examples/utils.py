@@ -182,15 +182,20 @@ def host_grad_step(leaves: List[np.ndarray], grad_step, device):
 
 
 def build_mesh_ring_step(kv, grad_step):
-    """Quantized mesh tier (GEOMX_MESH_CODEC != "none"): wrap
-    ``grad_step`` so the batch splits over the party mesh's "dp" ranks
-    (``kv.shard_batch``), each rank computes its LOCAL mean-loss grads,
-    and every leaf is party-mean-reduced through the store's quantized
-    ring (``kv.ring_reducer`` — the error-feedback residual streams live
-    in the store, keyed, so round aborts reset them in one place).
-    Returns a drop-in ``(lv, X, y) -> (loss, grads)`` whose gradients are
-    every rank's (identical) copy of the ring's output. Counts the ring's
+    """Mesh tier: wrap ``grad_step`` so the batch splits over the party
+    mesh's "dp" ranks (``kv.shard_batch``: the rows of the ranks this
+    process holds, every rank's in one process, its own over processes),
+    each rank computes its LOCAL mean-loss grads, and every leaf is
+    party-mean-reduced through the store's quantized ring
+    (``kv.ring_reducer`` — the error-feedback residual streams live in
+    the store, keyed, so round aborts reset them in one place;
+    GEOMX_MESH_CODEC "none": the fp32 sum over the ranks, over processes
+    the group's all-reduce). Returns a drop-in ``(lv, X, y) -> (loss,
+    grads)`` whose gradients are every rank's (identical) copy of the
+    ring's output and whose loss is the party's mean. Counts the ring's
     bytes under tier=mesh."""
+    mesh = kv.mesh
+
     def ring_step(lv, X, y):
         X, y = kv.shard_batch(X, y)
         losses, per_rank = [], []
@@ -203,23 +208,40 @@ def build_mesh_ring_step(kv, grad_step):
             shape = gs[0].shape
             stack = torch.stack([g.reshape(-1) for g in gs])
             red = kv.ring_reducer(idx, stack.shape[1], mean=True)
-            out.append(red.reduce(stack)[0].reshape(shape))
+            out.append((red.reduce(stack)[0] if red is not None
+                        else mesh.sum_rows(stack) / mesh.size).reshape(shape))
         kv.record_round_collectives(out, op="ring")
-        return torch.stack(losses).mean(), out
+        return mesh.all_rows(torch.stack(losses)).mean(), out
 
     return ring_step
+
+
+def process_party(kv) -> bool:
+    """Whether ``kv`` is a mesh-party store whose ranks are processes."""
+    return bool(getattr(kv, "procs", False))
+
+
+def sync_leaves(kv, leaves: List[np.ndarray]) -> None:
+    """On a party over processes, every rank's host ``leaves`` become the
+    global worker's (the store's broadcast); elsewhere nothing."""
+    if process_party(kv):
+        for leaf, v in zip(leaves, kv.put_replicated(leaves)):
+            leaf[...] = v.cpu().numpy()
 
 
 def init_and_pull(kv, leaves: List[np.ndarray]) -> None:
     """Every node inits every key; party workers then pull the global
     initial values into ``leaves`` (the master steps aside), as the
-    reference examples do."""
-    for idx, leaf in enumerate(leaves):
-        kv.init(idx, leaf)
-        if kv.is_master_worker:
-            continue
-        kv.pull(idx, out=leaves[idx])
-    kv.wait()
+    reference examples do. On a party over processes only the global
+    worker speaks the van; the other ranks take its values."""
+    if getattr(kv, "is_global_worker", True):
+        for idx, leaf in enumerate(leaves):
+            kv.init(idx, leaf)
+            if kv.is_master_worker:
+                continue
+            kv.pull(idx, out=leaves[idx])
+        kv.wait()
+    sync_leaves(kv, leaves)
 
 
 def eval_acc(test_iter, leaves: List[np.ndarray], eval_step,

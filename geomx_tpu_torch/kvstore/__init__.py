@@ -13,11 +13,13 @@ Counterpart of ``geomx_tpu/kvstore/__init__.py``. Accepted type strings:
 - "dist_async"                  — distributed, MixedSync (async global
                                   tier)
 - "dist_sync_mesh"              — mesh-party tier: the party's ranks share
-                                  one device and aggregate there; one
+                                  one device and aggregate there (or, with
+                                  the GEOMX_MESH_* settings, are processes
+                                  of a torch.distributed group); one
                                   global worker per party speaks the van
                                   (kvstore.mesh_party). GEOMX_PARTY_MESH
                                   makes the plain synchronous dist names
-                                  resolve here.
+                                  resolve here, on every rank.
 
 ``device`` places the party mesh of the mesh-party store and the
 single device of the "nccl" store (None: the CUDA card, and raises

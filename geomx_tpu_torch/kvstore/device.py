@@ -28,7 +28,14 @@ from geomx_tpu_torch._device import resolve_device
 from geomx_tpu_torch.kvstore.base import KVStore, _to_numpy
 from geomx_tpu_torch.kvstore.local import gather_rows, scatter_rows
 
-__all__ = ["KVStoreDeviceAllreduce"]
+__all__ = ["KVStoreDeviceAllreduce", "StoreArgumentError"]
+
+
+class StoreArgumentError(ValueError, AssertionError):
+    """A push or init whose keys, values or per-device list do not match.
+    The JAX package checks these with ``assert`` (``AssertionError``);
+    the port raises this, which is both a ``ValueError`` and an
+    ``AssertionError``, and is not stripped by ``python -O``."""
 
 
 class KVStoreDeviceAllreduce(KVStore):
@@ -62,10 +69,11 @@ class KVStoreDeviceAllreduce(KVStore):
         values = value if isinstance(value, (list, tuple)) and len(keys) > 1 \
             else [value]
         if len(keys) != len(values):
-            raise ValueError(f"{len(keys)} keys but {len(values)} values")
+            raise StoreArgumentError(
+                f"{len(keys)} keys but {len(values)} values")
         for k, v in zip(keys, values):
             if k in self._store:
-                raise ValueError(f"duplicate init of key {k}")
+                raise StoreArgumentError(f"duplicate init of key {k}")
             host = np.array(_to_numpy(v), dtype=np.float32)
             self._shapes[k] = host.shape
             self._store[k] = torch.from_numpy(host.copy()).to(self.device)
@@ -80,11 +88,12 @@ class KVStoreDeviceAllreduce(KVStore):
         values = value if isinstance(value, (list, tuple)) \
             and len(keys) > 1 else [value]
         if len(keys) != len(values):
-            raise ValueError(f"{len(keys)} keys but {len(values)} values")
+            raise StoreArgumentError(
+                f"{len(keys)} keys but {len(values)} values")
         for k, v in zip(keys, values):
             if isinstance(v, (list, tuple)):
                 if len(v) != len(self.devices):
-                    raise ValueError(
+                    raise StoreArgumentError(
                         f"push of key {k} expects {len(self.devices)} "
                         f"per-device gradients, got {len(v)}")
                 stacked = torch.stack([

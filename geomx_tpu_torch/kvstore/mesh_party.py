@@ -10,17 +10,25 @@ between members of one party.
 
 Topology:
 
-- the party's former van workers become the ranks of one party mesh;
-  on one card they share it, single-controller, as the quantized ring
-  already runs (a party over several cards is ROADMAP queue A item 9);
-- exactly ONE rank per party — the "global worker" — speaks the van to
-  the party server through an inner :class:`KVStoreDist`, whose combined
-  wire, P3 slicing, BSC, quantized wire codecs, membership epochs and
-  trace stamping are unchanged. The party's config says
-  ``num_workers=1``: the van sees one worker per party;
+- the party's former van workers become the ranks of one party mesh:
+  on one device they share it, single-controller
+  (:class:`~geomx_tpu_torch.parallel.mesh.PartyMesh`); with the
+  ``GEOMX_MESH_*`` settings each rank is a process of a
+  ``torch.distributed`` group (:func:`maybe_init_multihost`,
+  :class:`~geomx_tpu_torch.parallel.mesh.ProcessPartyMesh`);
+- exactly ONE rank per party — the "global worker", rank 0 of the group
+  — speaks the van to the party server through an inner
+  :class:`KVStoreDist`, whose combined wire, P3 slicing, BSC, quantized
+  wire codecs, membership epochs and trace stamping are unchanged. Only
+  it builds that store; on the other ranks of a process party the van
+  operations raise, as the JAX package's ``_require_global`` does. The
+  party's config says ``num_workers=1``: the van sees one worker per
+  party;
 - results come back into the mesh as replicated tensors on the party's
-  device (:meth:`put_replicated`), and batches split over the "dp" axis
-  as ``(P, B/P, ...)`` stacks (:meth:`shard_batch`).
+  device (:meth:`put_replicated`: over processes a broadcast from the
+  global worker), and batches split over the "dp" axis
+  (:meth:`shard_batch`: ``(R, B/P, ...)`` stacks of the mesh's local
+  rows, every rank's in one process, each process's own over several).
 
 Mesh-tier collectives never touch the van, so their bytes get their own
 counter family (``mesh.bytes{tier=mesh,...}``, from shapes, per round)
@@ -43,6 +51,8 @@ import threading
 import weakref
 from typing import Dict, Optional
 
+import torch.distributed as dist
+
 from geomx_tpu_torch import config as cfg_mod
 from geomx_tpu_torch import telemetry
 from geomx_tpu_torch.compression.device import MESH_CODECS
@@ -55,6 +65,9 @@ from geomx_tpu_torch.parallel.quant_collectives import (QuantRingReducer,
 
 __all__ = ["KVStorePartyMesh", "maybe_init_multihost"]
 
+# what a non-global rank of a process party takes from its global worker
+_IDENTITY = ("rank", "num_workers", "num_all_workers", "is_master_worker")
+
 
 def _ring_bytes(party_size: int, nbytes: int) -> int:
     """Link bytes of one ring all-reduce of ``nbytes`` over the party:
@@ -65,26 +78,39 @@ def _ring_bytes(party_size: int, nbytes: int) -> int:
 
 
 def maybe_init_multihost(cfg) -> bool:
-    """The JAX package joins a multi-process party mesh here
-    (``jax.distributed.initialize`` from the GEOMX_MESH_* settings). A
-    single-process party — every party of this port — is a no-op that
-    returns False; a party over several processes is refused."""
-    if int(cfg.mesh_num_processes) > 1:
-        raise NotImplementedError(
-            f"GEOMX_MESH_NUM_PROCS={cfg.mesh_num_processes}: a party mesh "
-            "over several processes (torch.distributed) is not ported yet "
-            "(ROADMAP queue A item 9); the port's party ranks share one "
-            "device in one process")
-    return False
+    """Join the party's process group from the GEOMX_MESH_* settings
+    (``GEOMX_MESH_COORDINATOR`` host:port, ``GEOMX_MESH_NUM_PROCS``,
+    ``GEOMX_MESH_PROC_ID``): ``torch.distributed`` over gloo, rendezvous
+    at the coordinator (rank 0 listens there). The JAX package calls
+    ``jax.distributed.initialize`` here.
+
+    Returns True when this process is in a multi-process party (after
+    which ``torch.distributed.get_rank()`` picks the global worker);
+    False on single-process runs (the settings unset). A repeat call is
+    a no-op that returns True. Gloo runs on the CPU and on the card
+    alike: NCCL would refuse two ranks on one GPU."""
+    if not cfg.mesh_coordinator or int(cfg.mesh_num_processes) <= 1:
+        return False
+    if dist.is_initialized():
+        return True
+    world, rank = int(cfg.mesh_num_processes), int(cfg.mesh_process_id)
+    if not 0 <= rank < world:
+        raise ValueError(f"GEOMX_MESH_PROC_ID={cfg.mesh_process_id}: "
+                         f"expected 0..{world - 1}")
+    dist.init_process_group("gloo",
+                            init_method="tcp://" + cfg.mesh_coordinator,
+                            world_size=world, rank=rank)
+    return True
 
 
 class KVStorePartyMesh(KVStore):
     def __init__(self, sync_global: bool = True,
                  cfg: Optional[cfg_mod.Config] = None,
                  mesh=None, party_index: int = 0, device=None):
-        """``mesh``: the party's :class:`PartyMesh`; None builds one of
+        """``mesh``: the party's mesh; None builds one of
         ``cfg.party_mesh_size`` ranks on ``device`` (None: the CUDA
-        card)."""
+        card) — over the processes of the group when the GEOMX_MESH_*
+        settings name one (joined first, as the JAX package does)."""
         super().__init__()
         self.cfg = cfg or cfg_mod.load()
         maybe_init_multihost(self.cfg)
@@ -93,6 +119,10 @@ class KVStorePartyMesh(KVStore):
                                          party_index, device=device)
         self.mesh = mesh
         self.party_size = int(mesh.size)
+        self.procs = isinstance(mesh, pmesh.ProcessPartyMesh)
+        # one process drives a one-process party; over processes rank 0
+        # of the group is the party's van speaker
+        self._is_global_worker = not self.procs or mesh.rank == 0
         # quantized mesh collective (GEOMX_MESH_CODEC): "none" keeps the
         # plain fp32 party mean; other codecs route gradient all-reduces
         # through the quantized ring, one stateful reducer (= one set of
@@ -108,10 +138,19 @@ class KVStorePartyMesh(KVStore):
         # abort re-seeds EVERY residual stream, not just the keyed ones
         self._residual_reset_hooks: list = []
         self._reset_pending = threading.Event()
-        # the party's ONLY van-speaking worker
-        self.inner = KVStoreDist(sync_global=sync_global, cfg=self.cfg)
         self._live_futs: "weakref.WeakSet[RoundFuture]" = weakref.WeakSet()
-        self.inner.round_abort_hook = self._fail_fast_pending
+        # the party's ONLY van-speaking worker; the other ranks of a
+        # process party mirror its van identity
+        self.inner = None
+        self._ident = {}
+        if self._is_global_worker:
+            self.inner = KVStoreDist(sync_global=sync_global, cfg=self.cfg)
+            self.inner.round_abort_hook = self._fail_fast_pending
+        if self.procs:
+            box = [{name: getattr(self.inner, name) for name in _IDENTITY}
+                   if self.inner is not None else None]
+            dist.broadcast_object_list(box, src=0)
+            self._ident = box[0]
 
     # -- identity --------------------------------------------------------
 
@@ -121,53 +160,64 @@ class KVStorePartyMesh(KVStore):
 
     @property
     def is_global_worker(self) -> bool:
-        # single-controller: this process drives every rank of the party
-        # and is its only van speaker
-        return True
+        return self._is_global_worker
+
+    def _van(self, name: str):
+        """The van store's ``name`` (on a non-global rank of a process
+        party: the global worker's, as it was when the party formed)."""
+        if self.inner is not None:
+            return getattr(self.inner, name)
+        return self._ident[name]
 
     @property
     def rank(self) -> int:
-        return self.inner.rank
+        return self._van("rank")
 
     @property
     def num_workers(self) -> int:
-        return self.inner.num_workers
+        return self._van("num_workers")
 
     @property
     def num_all_workers(self) -> int:
-        return self.inner.num_all_workers
+        return self._van("num_all_workers")
 
     @property
     def is_master_worker(self) -> bool:
-        return self.inner.is_master_worker
+        return self._van("is_master_worker")
 
     @property
     def po(self):
+        self._require_global("po")
         return self.inner.po
 
     def membership_epoch(self) -> int:
+        self._require_global("membership_epoch")
         return self.inner.membership_epoch()
 
     def get_num_dead_node(self, role=None) -> int:
+        self._require_global("get_num_dead_node")
         return self.inner.get_num_dead_node(role)
 
     def notify_round(self, round_idx: int) -> None:
-        self.inner.notify_round(round_idx)
+        if self._is_global_worker:
+            self.inner.notify_round(round_idx)
 
     # -- mesh side -------------------------------------------------------
 
     def put_replicated(self, tree):
         """Host or device leaves (one, or a list) as replicated tensors on
         the party's device (the "results back into the mesh" leg: no van
-        traffic)."""
+        traffic). Over processes every rank calls it with leaves of the
+        same shapes and gets the global worker's values (a broadcast)."""
         if isinstance(tree, (list, tuple)):
             return [pmesh.replicated(self.mesh, x) for x in tree]
         return pmesh.replicated(self.mesh, tree)
 
     def shard_batch(self, *arrays):
-        """Split batch arrays over the party's "dp" axis as ``(P, B/P,
-        ...)`` stacks (``None`` passes through — e.g. an unused label
-        operand)."""
+        """Split batch arrays over the party's "dp" axis as ``(R, B/P,
+        ...)`` stacks of the mesh's local rows: ``(P, B/P, ...)`` in one
+        process, this rank's ``(1, B/P, ...)`` over processes (``None``
+        passes through — e.g. an unused label operand)."""
         out = tuple(a if a is None else pmesh.batch_sharded(self.mesh, a)
                     for a in arrays)
         return out[0] if len(out) == 1 else out
@@ -255,42 +305,59 @@ class KVStorePartyMesh(KVStore):
         self._live_futs.add(fut)
         return fut
 
-    # -- data plane (van traffic: this process speaks for the party) ---
+    # -- data plane (van traffic: the global worker speaks for the party)
+
+    def _require_global(self, opname: str) -> None:
+        if not self._is_global_worker:
+            raise RuntimeError(
+                f"{opname}: only the party's global worker speaks the "
+                f"van; non-global mesh ranks aggregate via device "
+                f"collectives only")
 
     def init(self, key, value) -> None:
-        self.inner.init(key, value)
+        if self._is_global_worker:
+            self.inner.init(key, value)
 
     def push(self, key, value, priority: int = 0) -> None:
+        self._require_global("push")
         self.inner.push(key, value, priority=priority)
 
     def pull(self, key, out=None, priority: int = 0):
+        self._require_global("pull")
         return self.inner.pull(key, out=out, priority=priority)
 
     def push_pull(self, key, value, out, priority: int = 0) -> None:
+        self._require_global("push_pull")
         self.inner.push_pull(key, value, out, priority=priority)
 
     def push_pull_async(self, key, value, out, priority: int = 0,
                         slice_bytes: Optional[int] = None) -> RoundFuture:
+        self._require_global("push_pull_async")
         return self._watch(self.inner.push_pull_async(
             key, value, out, priority=priority, slice_bytes=slice_bytes))
 
     def push_bsc(self, key, values, indices, priority: int = 0) -> None:
+        self._require_global("push_bsc")
         self.inner.push_bsc(key, values, indices, priority=priority)
 
     def pull_bsc(self, key, priority: int = 0, timeout: float = None):
+        self._require_global("pull_bsc")
         return self.inner.pull_bsc(key, priority=priority, timeout=timeout)
 
     def push_bsc_batch(self, keys, values_list, indices_list,
                        priority: int = 0) -> None:
+        self._require_global("push_bsc_batch")
         self.inner.push_bsc_batch(keys, values_list, indices_list,
                                   priority=priority)
 
     def pull_bsc_batch(self, keys, priority: int = 0, timeout: float = None):
+        self._require_global("pull_bsc_batch")
         return self.inner.pull_bsc_batch(keys, priority=priority,
                                          timeout=timeout)
 
     def push_pull_bsc_batch(self, keys, values_list, indices_list,
                             priority: int = 0, timeout: float = None):
+        self._require_global("push_pull_bsc_batch")
         return self.inner.push_pull_bsc_batch(
             keys, values_list, indices_list, priority=priority,
             timeout=timeout)
@@ -299,38 +366,48 @@ class KVStorePartyMesh(KVStore):
                                   priority: int = 0,
                                   slice_bytes: Optional[int] = None
                                   ) -> RoundFuture:
+        self._require_global("push_pull_bsc_batch_async")
         return self._watch(self.inner.push_pull_bsc_batch_async(
             keys, values_list, indices_list, priority=priority,
             slice_bytes=slice_bytes))
 
     def wait(self, keys=None, timeout: float = None) -> None:
-        self.inner.wait(keys, timeout=timeout)
+        if self._is_global_worker:
+            self.inner.wait(keys, timeout=timeout)
 
     waitall = wait
 
     # -- control plane ---------------------------------------------------
 
     def set_optimizer(self, optimizer) -> None:
+        self._require_global("set_optimizer")
         self.inner.set_optimizer(optimizer)
 
     def set_gradient_compression(self, compression_params: Dict) -> None:
         super().set_gradient_compression(compression_params)
-        self.inner.set_gradient_compression(compression_params)
+        if self._is_global_worker:
+            self.inner.set_gradient_compression(compression_params)
 
     def set_multi_precision(self, multi_precision: bool = True) -> None:
-        self.inner.set_multi_precision(multi_precision)
+        if self._is_global_worker:
+            self.inner.set_multi_precision(multi_precision)
 
     def save_optimizer_states(self, fname: str) -> None:
+        self._require_global("save_optimizer_states")
         self.inner.save_optimizer_states(fname)
 
     def load_optimizer_states(self, fname: str) -> None:
+        self._require_global("load_optimizer_states")
         self.inner.load_optimizer_states(fname)
 
     def metrics(self, timeout: float = 30.0) -> Dict[str, object]:
+        self._require_global("metrics")
         return self.inner.metrics(timeout=timeout)
 
     def barrier(self, is_global: bool = False) -> None:
-        self.inner.barrier(is_global=is_global)
+        if self._is_global_worker:
+            self.inner.barrier(is_global=is_global)
 
     def close(self) -> None:
-        self.inner.close()
+        if self.inner is not None:
+            self.inner.close()

@@ -6,13 +6,14 @@ ring all-reduce (``quant_collectives``), ``DataParallelTrainer`` and
 ``HierarchicalTrainer`` (``train_step``), ring attention over "sp"
 (``ring_attention``), gradient accumulation (``grad_accum``), the GPipe
 pipeline over "pp" (``pipeline``) and FSDP over "dp" (``fsdp``). Every
-rank of a mesh shares one card (see ``mesh``); a mesh over several
-cards is not ported yet (ROADMAP queue A item 9).
+rank of a mesh shares one card (see ``mesh``), except a party's over
+processes (``ProcessPartyMesh``: one rank per process of a
+``torch.distributed`` group).
 """
 
 from geomx_tpu_torch.parallel.mesh import (  # noqa: F401
-    Mesh, PartyMesh, Sharded, make_mesh, make_party_mesh, mesh_shape_for,
-    party_devices, ring_chunk_layout, ring_perm, shard)
+    Mesh, PartyMesh, ProcessPartyMesh, Sharded, make_mesh, make_party_mesh,
+    mesh_shape_for, party_devices, ring_chunk_layout, ring_perm, shard)
 from geomx_tpu_torch.parallel.quant_collectives import (  # noqa: F401
     QuantRingReducer, make_quant_all_reduce, ring_all_reduce)
 from geomx_tpu_torch.parallel.train_step import (  # noqa: F401

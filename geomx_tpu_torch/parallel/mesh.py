@@ -16,24 +16,41 @@ rank-stacked axis: ``(P, ...)``, rank r's row at index r
 (:class:`Sharded`, :func:`shard`). So ``make_mesh`` takes its rank count
 from the caller, not from the device count, and the ranks share the
 card's memory: splitting a value over "tp", "ep" or "dp" changes its
-layout, not what one card holds. A mesh over several cards
-(``torch.distributed`` point-to-point hops) is not ported yet (ROADMAP
-queue A item 9).
+layout, not what one card holds.
+
+A party can also span processes (the JAX package's multi-process mesh,
+``jax.distributed``): once ``torch.distributed`` is up
+(``kvstore.mesh_party.maybe_init_multihost``), ``make_party_mesh``
+returns a :class:`ProcessPartyMesh`, one rank per process of the group.
+Both party meshes hold their ranks' values as local rows, a ``(R, ...)``
+stack of the ranks in ``row_ranks``: every rank's row in one process
+(R = P), this process's own row over processes (R = 1). So the code
+above them is one path, and the mesh supplies what differs: ``hop``
+(one step along :func:`ring_perm`: ``torch.roll`` of the stack, or a
+point-to-point send to rank r+1 paired with a receive from rank r-1),
+``sum_rows`` and ``all_rows`` (over the stack, or the group's
+all-reduce and all-gather), ``replicated`` (over processes a broadcast
+from rank 0) and ``batch_sharded`` (the rows of the party batch that
+``row_ranks`` own). The backend is gloo, on the CPU and on the card
+alike (NCCL refuses two ranks on one GPU): gloo moves host tensors, so
+a tensor on the card is staged through a pinned host buffer each way
+and everything else stays on the card.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from geomx_tpu_torch._device import resolve_device
 
 __all__ = ["AXES", "AXES5", "Mesh", "mesh_shape_for", "make_mesh",
            "Sharded", "shard", "check_divisible",
-           "param_layouts", "PartyMesh",
-           "make_party_mesh", "party_devices", "ring_perm",
+           "param_layouts", "PartyMesh", "ProcessPartyMesh",
+           "make_party_mesh", "party_devices", "ring_perm", "roll_hop",
            "ring_chunk_layout", "replicated", "batch_sharded"]
 
 AXES = ("dp", "tp", "sp")
@@ -58,6 +75,11 @@ class Mesh:
         for s in self.sizes:
             n *= s
         return n
+
+    @property
+    def row_ranks(self) -> range:
+        """The ranks of this process's local rows: all of them."""
+        return range(self.size)
 
 
 def mesh_shape_for(n_devices: int, tp: int = 1, sp: int = 1,
@@ -185,7 +207,8 @@ def shard(x, mesh: Mesh, spec: Sequence = ()) -> Sharded:
 
 @dataclass(frozen=True)
 class PartyMesh:
-    """``size`` data-parallel ranks of one party, all on ``device``."""
+    """``size`` data-parallel ranks of one party, all on ``device``: this
+    process holds every rank's row."""
     size: int
     device: torch.device
 
@@ -193,16 +216,98 @@ class PartyMesh:
     def shape(self) -> Dict[str, int]:
         return {"dp": self.size}
 
+    @property
+    def row_ranks(self) -> range:
+        """The ranks of this process's local rows, in row order."""
+        return range(self.size)
+
+    def hop(self, tensors) -> Tuple[torch.Tensor, ...]:
+        """One hop along :func:`ring_perm`: :func:`roll_hop`."""
+        return roll_hop(tensors)
+
+    def sum_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the ranks of the ``(P, ...)`` stack ``x``."""
+        return x.sum(dim=0)
+
+    def all_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's row of ``x``, ``(P, ...)``: ``x`` itself."""
+        return x
+
+
+@dataclass(frozen=True)
+class ProcessPartyMesh:
+    """A party of ``size`` data-parallel ranks, one per process of the
+    ``torch.distributed`` group: this process is rank ``rank`` and holds
+    one local row, its own, on ``device``."""
+    size: int
+    rank: int
+    device: torch.device
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"dp": self.size}
+
+    @property
+    def row_ranks(self) -> range:
+        """The ranks of this process's local rows: its own."""
+        return range(self.rank, self.rank + 1)
+
+    def hop(self, tensors) -> Tuple[torch.Tensor, ...]:
+        """One hop along :func:`ring_perm` over the processes
+        (``lax.ppermute`` in the JAX ring): each of this rank's tensors
+        goes to rank r+1 by ``isend``, paired with an ``irecv`` of rank
+        r-1's of the same shape and dtype. Returns the received tensors
+        on the party's device."""
+        nxt, prv = (self.rank + 1) % self.size, (self.rank - 1) % self.size
+        reqs: List = []
+        got = []
+        for t in tensors:
+            h = _staged(t)
+            b = torch.empty(h.shape, dtype=h.dtype,
+                            pin_memory=h.is_pinned())
+            reqs.append(dist.isend(_as_bytes(h), nxt))
+            reqs.append(dist.irecv(_as_bytes(b), prv))
+            got.append(b)
+        for q in reqs:
+            q.wait()
+        return tuple(b.to(self.device) for b in got)
+
+    def sum_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over every rank of the group of its ``(1, ...)`` local
+        rows, in fp32, on the party's device (the group's all-reduce)."""
+        h = _staged(x.to(torch.float32).sum(dim=0))
+        dist.all_reduce(h, op=dist.ReduceOp.SUM)
+        return h.to(self.device)
+
+    def all_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's row of ``x``, stacked ``(P, ...)`` in rank order on
+        the party's device (the group's all-gather)."""
+        h = _staged(x[0])
+        rows = [torch.empty_like(h) for _ in range(self.size)]
+        dist.all_gather(rows, h)
+        return torch.stack(rows).to(self.device)
+
 
 def make_party_mesh(party_size: int, party_index: int = 0,
-                    device=None) -> PartyMesh:
+                    device=None):
     """Pure-dp mesh of party ``party_index``: ``party_size`` ranks on one
     device (``device=None`` is the CUDA card, and raises without one).
     Several parties of one process share that device, each with a mesh
     of its own. ``party_size`` 0 is the JAX package's "every local
-    device": one rank per visible card, at least one."""
+    device": one rank per visible card, at least one.
+
+    Once this process has joined a ``torch.distributed`` group, the party
+    is the group: a :class:`ProcessPartyMesh` of the world size, this
+    process's rank, its row on ``device`` (``party_size`` must be 0 or
+    the world size)."""
     dev = resolve_device(device)
     size = int(party_size)
+    if dist.is_available() and dist.is_initialized():
+        world = dist.get_world_size()
+        if size not in (0, world):
+            raise ValueError(f"party_size {party_size} != the process "
+                             f"group's {world} ranks")
+        return ProcessPartyMesh(world, dist.get_rank(), dev)
     if size == 0:
         size = max(1, torch.cuda.device_count() if dev.type == "cuda" else 1)
     if size < 1:
@@ -235,6 +340,12 @@ def ring_perm(size: int):
     return [(i, (i + 1) % size) for i in range(size)]
 
 
+def roll_hop(tensors) -> Tuple[torch.Tensor, ...]:
+    """One hop along :func:`ring_perm` of each ``(P, ...)`` stack of
+    every rank's row: rank r's row moves to rank r+1."""
+    return tuple(torch.roll(t, 1, dims=0) for t in tensors)
+
+
 def ring_chunk_layout(n: int, size: int, multiple: int = 1
                       ) -> Tuple[int, int]:
     """Chunking for an n-element ring all-reduce over ``size`` ranks.
@@ -250,19 +361,46 @@ def ring_chunk_layout(n: int, size: int, multiple: int = 1
     return m, size * m
 
 
-def replicated(mesh: PartyMesh, x) -> torch.Tensor:
+def _staged(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous host copy of ``t`` that gloo may send or overwrite
+    (pinned when ``t`` is on the card, so the copy is one DMA)."""
+    h = torch.empty(t.shape, dtype=t.dtype,
+                    pin_memory=t.device.type == "cuda")
+    h.copy_(t)
+    return h
+
+
+def _as_bytes(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor's storage as flat bytes: gloo's point-to-point
+    and broadcast move bytes whatever the dtype (fp16, bf16, int8)."""
+    return t.reshape(-1).view(torch.uint8)
+
+
+def replicated(mesh, x) -> torch.Tensor:
     """``x`` replicated over the party: one tensor on the party's device,
     which every rank reads (the counterpart of ``NamedSharding(mesh,
-    P())``)."""
-    return torch.as_tensor(x).to(mesh.device)
+    P())``). Over processes this is a broadcast of rank 0's ``x``: every
+    rank passes a value of the same shape and dtype, and gets rank 0's."""
+    t = torch.as_tensor(x)
+    if not isinstance(mesh, ProcessPartyMesh):
+        return t.to(mesh.device)
+    h = _staged(t)
+    dist.broadcast(_as_bytes(h), 0)
+    return h.to(mesh.device)
 
 
-def batch_sharded(mesh: PartyMesh, x) -> torch.Tensor:
+def batch_sharded(mesh, x) -> torch.Tensor:
     """``x`` split over the party's "dp" axis as ``jax.device_put`` with
     ``P("dp")`` splits it: rank r gets the contiguous rows ``[r*B/P,
-    (r+1)*B/P)``, stacked as ``(P, B/P, ...)`` on the party's device."""
-    t = torch.as_tensor(x).to(mesh.device)
+    (r+1)*B/P)``. Every process passes the whole party batch and gets
+    the rows of its ``mesh.row_ranks``, stacked ``(R, B/P, ...)`` on the
+    party's device: ``(P, B/P, ...)`` in one process, ``(1, B/P, ...)``
+    over processes."""
+    t = torch.as_tensor(x)
     if t.ndim == 0 or t.shape[0] % mesh.size:
         raise ValueError(f"a batch of {tuple(t.shape)} does not split over "
                          f"{mesh.size} ranks")
-    return t.reshape(mesh.size, t.shape[0] // mesh.size, *t.shape[1:])
+    per = t.shape[0] // mesh.size
+    ranks = mesh.row_ranks
+    return t[ranks.start * per:ranks.stop * per].to(mesh.device).reshape(
+        len(ranks), per, *t.shape[1:])

@@ -6,12 +6,18 @@ before it crosses the link: block-scaled int8 by default, 2-bit error
 feedback and fp16 as alternate policies, all from
 :mod:`geomx_tpu_torch.compression.device` / :mod:`geomx_tpu_torch.ops`.
 
-The party's ranks share one device (:mod:`.mesh`), so the ring is one
-program over a leading rank axis: the input is the ``(P, n)`` stack of
-rank contributions, a hop along ``ring_perm`` is ``torch.roll(wire, 1,
-dims=0)`` (rank r receives from r-1), and each hop quantizes all P
-ranks' chunks at once — with the 2-bit codec one launch of the
-``two_bit`` kernel per hop.
+The ring is one program over the party's local rows
+(:mod:`~geomx_tpu_torch.parallel.mesh`): the input is the ``(R, n)``
+stack of the contributions of the ranks in ``mesh.row_ranks`` and a hop
+along ``ring_perm`` is ``mesh.hop``. On a :class:`~.mesh.PartyMesh` the
+party's ranks share one device, R = P and a hop is ``torch.roll(wire,
+1, dims=0)`` (rank r receives from r-1): each hop quantizes all P
+ranks' chunks at once, with the 2-bit codec one launch of the
+``two_bit`` kernel per hop. On a :class:`~.mesh.ProcessPartyMesh` each
+process is one rank, R = 1 (the JAX ring under shard_map), a hop is a
+point-to-point send of the wire to rank r+1 paired with a receive from
+rank r-1, and each hop's quantize is one ``two_bit`` launch in every
+process.
 
 Ring schedule (P ranks, vector padded to P chunks of m elements):
 
@@ -27,21 +33,23 @@ Ring schedule (P ranks, vector padded to P chunks of m elements):
 Error feedback: each rank carries a ``(P, m)`` residual — slots
 ``0..P-2`` feed the reduce-scatter steps, slot ``P-1`` the all-gather
 origin quantize; slot s always covers chunk ``(r - s) % P``, so each
-slot tracks one chunk's error stream across rounds. The ``(P, P, m)``
-state is passed in and a new one returned (state in, state out); the
-kernel writes each slot of the new state in place through its strided
-view, with no copy.
+slot tracks one chunk's error stream across rounds. The local rows'
+``(R, P, m)`` state (all of the ``(P, P, m)`` state in one process, the
+rank's own slice over processes) is passed in and a new one returned
+(state in, state out); the kernel writes each slot of the new state in
+place through its strided view, with no copy.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import time
+from typing import Optional, Tuple
 
 import torch
 
 from geomx_tpu_torch import ops
 from geomx_tpu_torch.compression import device as dev
-from geomx_tpu_torch.parallel.mesh import ring_chunk_layout
+from geomx_tpu_torch.parallel.mesh import ring_chunk_layout, roll_hop
 
 __all__ = ["RING_SLOTS", "ring_all_reduce", "residual_slots",
            "make_quant_all_reduce", "QuantRingReducer", "ring_wire_bytes",
@@ -110,61 +118,96 @@ class _HopCodec:
         raise ValueError(f"unknown mesh codec {self.codec!r}")
 
 
-def _hop_send(wire):
-    """One hop along ``mesh.ring_perm``: rank r's row moves to rank r+1."""
-    return tuple(torch.roll(w, 1, dims=0) for w in wire)
+class _Split:
+    """Seconds per part of a ring (quantize, hop, dequantize), added into
+    ``timings`` when the caller passes a dict; the device is
+    synchronized at each mark only then."""
+
+    def __init__(self, timings: Optional[dict], device: torch.device):
+        self.timings = timings
+        self.cuda = device.type == "cuda"
+        self.t = time.perf_counter()
+
+    def __call__(self, part: str) -> None:
+        if self.timings is None:
+            return
+        if self.cuda:
+            torch.cuda.synchronize()
+        now = time.perf_counter()
+        self.timings[part] = self.timings.get(part, 0.0) + now - self.t
+        self.t = now
 
 
 def ring_all_reduce(x, residual, *, size: int, codec: str = "int8",
-                    block: int = 256, threshold: float = 0.5
+                    block: int = 256, threshold: float = 0.5,
+                    ranks: Optional[range] = None, hop=roll_hop,
+                    timings: Optional[dict] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Quantized ring all-reduce of the ``(P, n)`` stack ``x`` of flat
-    f32 rank contributions with the ``(P, P, m)`` residual state.
+    """Quantized ring all-reduce over ``size`` ranks of the ``(R, n)``
+    stack ``x`` of flat f32 contributions, row i rank ``ranks[i]``'s
+    (default: every rank's, R = P), with their ``(R, P, m)`` residual
+    state. ``hop`` moves each wire tensor's rows one step along the
+    ring (``torch.roll`` of the whole stack by default; a party mesh's
+    ``hop``). ``timings``: a dict that gains the seconds spent
+    quantizing, hopping and dequantizing.
 
-    Returns ``(replicas (P, n), new_residual (P, P, m))``: row r is rank
-    r's copy of the sum, bit-identical on every rank. ``codec="none"``
-    is the caller's branch (the plain sum) — rejected here.
+    Returns ``(replicas (R, n), new_residual (R, P, m))``: row i is rank
+    ``ranks[i]``'s copy of the sum, bit-identical on every rank.
+    ``codec="none"`` is the caller's branch (the plain sum) — rejected
+    here.
     """
     if codec not in ("int8", "2bit", "fp16"):
         raise ValueError(
             f"ring_all_reduce: codec {codec!r} not in ('int8', '2bit', "
             "'fp16'); 'none' keeps the plain sum at the call site")
     size = int(size)
-    if x.ndim != 2 or x.shape[0] != size:
-        raise ValueError(f"expected a ({size}, n) stack, got "
+    ranks = range(size) if ranks is None else ranks
+    rows = len(ranks)
+    if x.ndim != 2 or x.shape[0] != rows:
+        raise ValueError(f"expected a ({rows}, n) stack, got "
                          f"{tuple(x.shape)}")
     n = int(x.shape[1])
     m, padded = ring_chunk_layout(n, size, _codec_multiple(codec, block))
-    if tuple(residual.shape) != (size, residual_slots(size), m):
-        raise ValueError(f"residual must be ({size}, "
+    if tuple(residual.shape) != (rows, residual_slots(size), m):
+        raise ValueError(f"residual must be ({rows}, "
                          f"{residual_slots(size)}, {m}), got "
                          f"{tuple(residual.shape)}")
-    hop = _HopCodec(codec, m, block, threshold)
+    q = _HopCodec(codec, m, block, threshold)
+    split = _Split(timings, x.device)
 
     xp = x.to(torch.float32)
     if padded != n:
         xp = torch.nn.functional.pad(xp, (0, padded - n))
-    chunks = xp.reshape(size, size, m)
-    r = torch.arange(size, device=x.device)
+    chunks = xp.reshape(rows, size, m)
+    i = torch.arange(rows, device=x.device)
+    r = torch.arange(ranks.start, ranks.stop, device=x.device)
     new_res = torch.empty_like(residual)
 
     # reduce-scatter: quantize the running partial every hop
-    send_val = chunks[r, r]
+    send_val = chunks[i, r]
     for s in range(size - 1):
-        rx = _hop_send(hop.quantize(send_val, residual[:, s], new_res[:, s]))
-        send_val = hop.dequantize(rx) + chunks[r, (r - s - 1) % size]
+        wire = q.quantize(send_val, residual[:, s], new_res[:, s])
+        split("quantize")
+        rx = hop(wire)
+        split("hop")
+        send_val = q.dequantize(rx) + chunks[i, (r - s - 1) % size]
+        split("dequantize")
     # send_val is now chunk (r+1) % size, fully summed on rank r
-    wire = hop.quantize(send_val, residual[:, size - 1], new_res[:, size - 1])
+    wire = q.quantize(send_val, residual[:, size - 1], new_res[:, size - 1])
+    split("quantize")
 
     # all-gather: relay the owner's codes verbatim; every rank (owner
     # included) dequantizes the same bytes -> bit-identical replicas
-    out = torch.empty((size, size, m), dtype=torch.float32, device=x.device)
-    out[r, (r + 1) % size] = hop.dequantize(wire)
+    out = torch.empty((rows, size, m), dtype=torch.float32, device=x.device)
+    out[i, (r + 1) % size] = q.dequantize(wire)
+    split("dequantize")
     cur = wire
     for t in range(size - 1):
-        cur = _hop_send(cur)
-        out[r, (r - t) % size] = hop.dequantize(cur)
-    return out.reshape(size, padded)[:, :n], new_res
+        cur = hop(cur)
+        split("hop")
+        out[i, (r - t) % size] = q.dequantize(cur)
+        split("dequantize")
+    return out.reshape(rows, padded)[:, :n], new_res
 
 
 def ring_wire_bytes(codec: str, n: int, size: int, block: int = 256) -> int:
@@ -181,12 +224,14 @@ def ring_wire_bytes(codec: str, n: int, size: int, block: int = 256) -> int:
 
 
 def zero_residual(size: int, n: int, codec: str, block: int = 256,
-                  device=None) -> torch.Tensor:
-    """Error-feedback state for one ring: ``(P, P, m)`` zeros, rank r's
-    slots in row r."""
+                  device=None, rows: Optional[int] = None) -> torch.Tensor:
+    """Error-feedback state for one ring: ``(R, P, m)`` zeros, the slots
+    of the rank of local row i in row i (``rows`` R defaults to P, every
+    rank's)."""
     m, _ = ring_chunk_layout(int(n), int(size),
                              _codec_multiple(codec, block))
-    return torch.zeros((int(size), residual_slots(size), m),
+    return torch.zeros((int(size) if rows is None else int(rows),
+                        residual_slots(size), m),
                        dtype=torch.float32, device=device)
 
 
@@ -194,35 +239,42 @@ def make_quant_all_reduce(mesh, codec: str, n: int, *, block: int = 256,
                           threshold: float = 0.5, mean: bool = False):
     """Standalone quantized all-reduce over the party ``mesh``.
 
-    Returns ``fn(x_stacked, residual) -> (reduced, new_residual)``:
-    ``x_stacked`` is ``(P, n)`` (rank r's contribution in row r),
-    ``residual`` the ``zero_residual`` tensor. ``reduced`` is ``(P, n)``,
-    one replica of the sum (mean when ``mean=True``) per rank — what the
-    JAX package's replicated output holds on each of its P devices.
-    ``codec="none"`` is the plain sum over the ranks with a pass-through
-    residual — the reference the quantized paths are measured against.
+    Returns ``fn(x_stacked, residual, timings=None) -> (reduced,
+    new_residual)``: ``x_stacked`` is the ``(R, n)`` stack of the
+    mesh's local rows (``mesh.row_ranks``: all P ranks in one process,
+    this rank over processes), ``residual`` the ``zero_residual`` tensor
+    of those rows. ``reduced`` is ``(R, n)``, one replica of the sum
+    (mean when ``mean=True``) per local rank — what the JAX package's
+    replicated output holds on each of its devices. ``codec="none"`` is
+    the plain sum over the ranks with a pass-through residual — the
+    reference the quantized paths are measured against (over processes
+    the group's all-reduce). ``timings`` as :func:`ring_all_reduce`
+    takes it.
     """
     size = int(mesh.shape["dp"])
     n = int(n)
+    want = (len(mesh.row_ranks), n)
 
     def check(xs):
-        if tuple(xs.shape) != (size, n):
-            raise ValueError(f"expected a ({size}, {n}) stack, got "
+        if tuple(xs.shape) != want:
+            raise ValueError(f"expected a stack of {want}, got "
                              f"{tuple(xs.shape)}")
 
     if codec == "none":
-        def fn(xs, res):
+        def fn(xs, res, timings=None):
             check(xs)
-            y = xs.to(torch.float32).sum(dim=0)
+            y = mesh.sum_rows(xs.to(torch.float32))
             y = y / size if mean else y
-            return y.expand(size, n), res
+            return y.expand(*want), res
 
         return fn
 
-    def fn(xs, res):
+    def fn(xs, res, timings=None):
         check(xs)
-        y, new_res = ring_all_reduce(xs, res, size=size, codec=codec,
-                                     block=block, threshold=threshold)
+        y, new_res = ring_all_reduce(
+            xs, res, size=size, codec=codec, block=block,
+            threshold=threshold, ranks=mesh.row_ranks, hop=mesh.hop,
+            timings=timings)
         return (y / size if mean else y), new_res
 
     return fn
@@ -230,8 +282,9 @@ def make_quant_all_reduce(mesh, codec: str, n: int, *, block: int = 256,
 
 class QuantRingReducer:
     """Stateful wrapper: one quantized all-reduce per round for one fixed
-    vector size, holding the device-resident residual between rounds —
-    one per gradient key, so residual streams never mix across keys.
+    vector size, holding the device-resident residual of the mesh's
+    local rows between rounds — one per gradient key, so residual
+    streams never mix across keys.
     """
 
     def __init__(self, mesh, codec: str, n: int, *, block: int = 256,
@@ -251,16 +304,18 @@ class QuantRingReducer:
         self._res = self._zero()
 
     def _zero(self) -> torch.Tensor:
+        rows = len(self.mesh.row_ranks)
         if self.codec == "none":
-            return torch.zeros((self.size, 1, 1), dtype=torch.float32,
+            return torch.zeros((rows, 1, 1), dtype=torch.float32,
                                device=self.mesh.device)
         return zero_residual(self.size, self.n, self.codec, self.block,
-                             device=self.mesh.device)
+                             device=self.mesh.device, rows=rows)
 
-    def reduce(self, x_stacked) -> torch.Tensor:
-        """All-reduce ``(P, n)`` -> ``(P, n)`` replicas, advancing the
-        residual stream by one round."""
-        y, self._res = self._fn(x_stacked, self._res)
+    def reduce(self, x, timings: Optional[dict] = None) -> torch.Tensor:
+        """All-reduce the ``(R, n)`` local rows -> ``(R, n)`` replicas,
+        advancing the residual stream by one round (``timings`` as
+        :func:`ring_all_reduce` takes it)."""
+        y, self._res = self._fn(x, self._res, timings)
         return y
 
     def reset(self) -> None:

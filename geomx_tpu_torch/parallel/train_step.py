@@ -6,10 +6,13 @@ Counterpart of ``geomx_tpu/parallel/train_step.py``.
 batch is split over the "dp" ranks, and the step either mean-reduces the
 gradient and applies the optimizer (``step``) or hands back each rank's
 local gradient for an explicit collective such as the quantized ring
-(``local_grads``). The party's ranks share one device
-(:mod:`.mesh`), so one replica of the parameters serves every rank and
-``local_grads`` runs one forward and backward pass per rank over its
-shard of the batch.
+(``local_grads``). One replica of the parameters serves the ranks of
+the mesh's local rows (:mod:`.mesh`), and ``local_grads`` runs one
+forward and backward pass per local rank over its shard of the batch:
+every rank of the party on a :class:`~.mesh.PartyMesh`, this process's
+own rank on a :class:`~.mesh.ProcessPartyMesh`, where the party mean is
+the group's all-reduce, or the quantized ring (``step``'s
+``reducer``).
 
 The model is a ``torch.nn.Module`` (parameters in flax leaf order as
 :func:`geomx_tpu_torch.models.convert.leaf_names` gives it) and the
@@ -23,17 +26,23 @@ runs the optimizer (FSA) and the fresh parameters are installed back
 into the model. Over a mesh-party store the party's ranks aggregate on
 the device first (the fp32 mean, or the store's quantized ring per key
 with ``GEOMX_MESH_CODEC``) and only the party's global worker speaks the
-van, one combined ``push_pull`` per round.
+van, one combined ``push_pull`` per round. Over processes the other
+ranks take the fresh parameters by the store's broadcast
+(``put_replicated``), the initial ones too: the JAX package's
+``init_on_kvstore`` pulls on every rank, which its non-global ranks
+refuse.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+import time
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from geomx_tpu_torch.models.convert import leaf_names
+from geomx_tpu_torch.parallel import mesh as pmesh
 
 __all__ = ["DataParallelTrainer", "HierarchicalTrainer"]
 
@@ -63,41 +72,84 @@ class DataParallelTrainer:
         loss = self._loss(X, y)
         return loss.detach(), list(torch.autograd.grad(loss, self.params))
 
+    @property
+    def _one_pass(self) -> bool:
+        """Whether this process holds every rank of the party, so the
+        party mean is one pass over the whole batch."""
+        return len(self.mesh.row_ranks) == self.mesh.size
+
     def shard_batch(self, X, y):
         """The batch as tensors on the party's device."""
         dev = self.mesh.device
         return torch.as_tensor(X).to(dev), torch.as_tensor(y).to(dev)
 
-    def step(self, X, y) -> float:
-        X, y = self.shard_batch(X, y)
-        loss, grads = self._grad(X, y)
+    def _mean_loss(self, losses) -> torch.Tensor:
+        """The party's mean of the local ranks' ``(R,)`` losses."""
+        return self.mesh.all_rows(losses).mean()
+
+    def _party_mean(self, X, y, reducer=None, timings=None):
+        """The local ranks' grads reduced to the party mean by ``reducer``
+        (a :class:`QuantRingReducer` over the flat gradient) or, without
+        one, the fp32 sum over the ranks; ``(mean loss, [grad leaf])``."""
+        t0 = time.perf_counter()
+        losses, grads = self.local_grads(X, y)
+        flat = torch.cat([g.reshape(g.shape[0], -1) for g in grads], dim=1)
+        del grads
+        if timings is not None:
+            _sync(flat)
+            timings["local_grads"] = time.perf_counter() - t0
+        out = reducer.reduce(flat, timings)[0] if reducer is not None \
+            else self.mesh.sum_rows(flat) / self.mesh.size
+        sizes = [p.numel() for p in self.params]
+        return self._mean_loss(losses), [
+            g.view(p.shape) for g, p in zip(out.split(sizes), self.params)]
+
+    def step(self, X, y, reducer=None, timings: Optional[dict] = None
+             ) -> float:
+        """One optimizer step on the party-mean gradient: with
+        ``reducer`` (the quantized ring over the flattened gradient) the
+        local grads and their ring mean; without, one pass over the whole
+        batch where this process holds every rank, else the local grads
+        and the group's all-reduce. ``timings``: a dict that gains the
+        seconds of the local grads, the ring's parts and the apply."""
+        if reducer is not None:
+            loss, grads = self._party_mean(X, y, reducer, timings)
+        else:
+            loss, grads = self.grads(X, y)
+        t0 = time.perf_counter()
         for p, g in zip(self.params, grads):
             p.grad = g
         self.optimizer.step()
+        if timings is not None:
+            _sync(self.params[0])
+            timings["apply"] = time.perf_counter() - t0
         return float(loss)
 
     def grads(self, X, y):
         """Party-aggregated (mean) gradients: ``(loss, [grad leaf])`` in
         flax leaf order — tier-1 output for tier-2."""
+        if not self._one_pass:
+            return self._party_mean(X, y)
         X, y = self.shard_batch(X, y)
         return self._grad(X, y)
 
     def local_grads(self, X, y):
-        """Per-rank local mean grads, each leaf stacked ``(P, *shape)``
-        over "dp" (NOT reduced — feed these to the quantized ring);
-        losses come back ``(P,)``, one per rank."""
-        X, y = self.shard_batch(X, y)
-        size = self.mesh.size
-        if X.shape[0] % size:
-            raise ValueError(f"batch {X.shape[0]} does not split over "
-                             f"{size} ranks")
-        per = X.shape[0] // size
-        out = [self._grad(X[r * per:(r + 1) * per], y[r * per:(r + 1) * per])
-               for r in range(size)]
+        """Per-rank local mean grads of the mesh's local rows, each leaf
+        stacked ``(R, *shape)`` (NOT reduced — feed these to the
+        quantized ring); losses come back ``(R,)``, one per local rank.
+        R is P on one device, 1 over processes."""
+        X = pmesh.batch_sharded(self.mesh, X)
+        y = pmesh.batch_sharded(self.mesh, y)
+        out = [self._grad(X[i], y[i]) for i in range(X.shape[0])]
         losses = torch.stack([loss for loss, _ in out])
         grads = [torch.stack([g[i] for _, g in out])
                  for i in range(len(self.params))]
         return losses, grads
+
+
+def _sync(t: torch.Tensor) -> None:
+    if t.device.type == "cuda":
+        torch.cuda.synchronize()
 
 
 class HierarchicalTrainer:
@@ -123,17 +175,22 @@ class HierarchicalTrainer:
         self._host = [p.detach().cpu().numpy().copy() for p in self.t.params]
 
     def init_on_kvstore(self) -> None:
-        for idx, leaf in enumerate(self._host):
-            self.kv.init(idx, leaf)
-            if not getattr(self.kv, "is_master_worker", False):
-                self.kv.pull(idx, out=self._host[idx])
-        self.kv.wait()
+        if getattr(self.kv, "is_global_worker", True):
+            for idx, leaf in enumerate(self._host):
+                self.kv.init(idx, leaf)
+                if not getattr(self.kv, "is_master_worker", False):
+                    self.kv.pull(idx, out=self._host[idx])
+            self.kv.wait()
         self._install()
 
     @torch.no_grad()
     def _install(self) -> None:
-        for p, h in zip(self.t.params, self._host):
-            p.copy_(torch.from_numpy(h))
+        """The fresh parameters into the model; over processes every
+        rank takes the global worker's by the store's broadcast."""
+        vals = self.kv.put_replicated(self._host) if self._mesh_store \
+            else [torch.from_numpy(h) for h in self._host]
+        for p, v in zip(self.t.params, vals):
+            p.copy_(v)
 
     def step(self, X, y) -> float:
         if self._mesh_store and \
@@ -155,7 +212,7 @@ class HierarchicalTrainer:
         local grads go through one quantized ring PER KEY
         (``kv.ring_reducer`` — the error-feedback residual streams live
         in the store, keyed, so round aborts reset them in one place)
-        instead of the fp32 mean. Every rank's row of the ring's output
+        instead of the fp32 mean. Every rank's copy of the ring's output
         is the same; the van leg and the accounting are
         :meth:`_step_mesh`'s."""
         losses, grads = self.t.local_grads(X, y)
@@ -166,20 +223,21 @@ class HierarchicalTrainer:
             red = self.kv.ring_reducer(idx, n, mean=True)
             glist.append(red.reduce(g.reshape(g.shape[0], -1))[0]
                          .reshape(shape))
-        return self._step_mesh(glist, losses.mean())
+        return self._step_mesh(glist, self.t._mean_loss(losses))
 
     def _step_mesh(self, glist, loss) -> float:
         """Mesh-party round: the party's aggregate is in ``glist`` —
         account its collective under tier=mesh, then one combined
-        push_pull round on the van (this process speaks for the whole
-        party); the result goes back into the model."""
+        push_pull round on the van by the party's global worker; the
+        result goes back into the model (every rank's)."""
         self.kv.record_round_collectives(glist)
-        vals = [g.cpu().numpy() for g in glist]
-        if len(vals) == 1:
-            self.kv.push_pull(0, vals[0], self._host[0], priority=0)
-        else:
-            self.kv.push_pull(list(range(len(vals))), vals, self._host,
-                              priority=0)
-        self.kv.wait()
+        if getattr(self.kv, "is_global_worker", True):
+            vals = [g.cpu().numpy() for g in glist]
+            if len(vals) == 1:
+                self.kv.push_pull(0, vals[0], self._host[0], priority=0)
+            else:
+                self.kv.push_pull(list(range(len(vals))), vals, self._host,
+                                  priority=0)
+            self.kv.wait()
         self._install()
         return float(loss)

@@ -72,11 +72,16 @@ launch_hips_party_server() {
   HIPS_PIDS="$HIPS_PIDS $!"
 }
 
-# wait for every background role; the first non-zero code wins
+# wait for every background role; the first non-zero code wins. With
+# EXIT_CODES_FILE set, every role's code is appended there, one line
+# each ("foreground <code>", then "<pid> <code>").
 reap_hips() {
-  local rc="$1" p
+  local rc="$1" p r
+  [ -n "${EXIT_CODES_FILE:-}" ] && echo "foreground $rc" >> "$EXIT_CODES_FILE"
   for p in $HIPS_PIDS; do
-    wait "$p" || { local r=$?; [ "$rc" = 0 ] && rc=$r; }
+    wait "$p"; r=$?
+    [ -n "${EXIT_CODES_FILE:-}" ] && echo "$p $r" >> "$EXIT_CODES_FILE"
+    [ "$r" != 0 ] && [ "$rc" = 0 ] && rc=$r
   done
   HIPS_PIDS=""
   return "$rc"
@@ -146,11 +151,25 @@ launch_hips() {
 # shares that worker's device (parallel.mesh.PartyMesh); the van sees one
 # worker per party, so DMLC_NUM_ALL_WORKER=2 (= parties). Unlike the JAX
 # recipe there is no XLA_FLAGS device count: the ranks are not devices.
+#
+# MESH_PROCS (default 1, the layout above) > 1 makes each data party's
+# ranks processes: MESH_PROCS worker processes per party join one gloo
+# group (GEOMX_MESH_COORDINATOR at the party's host and port MPORT_A /
+# MPORT_B, default APORT+100 / BPORT+100; GEOMX_MESH_NUM_PROCS,
+# GEOMX_MESH_PROC_ID), the party mesh is MESH_PROCS ranks, and only
+# process 0 gets DMLC_ROLE=worker: it is the party's global worker and
+# speaks the van, the others compute their rows and join the ring. Their
+# logs are mesh_w<slice>_p<id>.log. With 2: 12 processes.
 launch_mesh_hips() {
   local module="$1"; shift
   local extra="$@"
+  local nproc=${MESH_PROCS:-1}
   export GEOMX_PARTY_MESH=1
-  export GEOMX_PARTY_MESH_SIZE=${MESH_SIZE:-2}
+  if [ "$nproc" -gt 1 ]; then
+    export GEOMX_PARTY_MESH_SIZE=$nproc
+  else
+    export GEOMX_PARTY_MESH_SIZE=${MESH_SIZE:-2}
+  fi
 
   # central party -----------------------------------------------------
   env $(echo $GLOBALS) $NH_CENTRAL DMLC_ROLE_GLOBAL=global_scheduler \
@@ -182,15 +201,28 @@ launch_mesh_hips() {
       $PYTHON $INFRA > "$LOG_DIR/mesh_sched_$PPORT.log" 2>&1 &
     HIPS_PIDS="$HIPS_PIDS $!"
     launch_hips_party_server "$PPORT" "$PHOST" "$NH_P" 1 "$LOG_DIR/mesh_server_$PPORT.log"
+    local MESH_ENV="" k
+    if [ "$nproc" -gt 1 ]; then
+      local MPORT=${MPORT_A:-$((APORT + 100))}
+      [ "$PPORT" = "$BPORT" ] && MPORT=${MPORT_B:-$((BPORT + 100))}
+      MESH_ENV="GEOMX_MESH_COORDINATOR=$PHOST:$MPORT GEOMX_MESH_NUM_PROCS=$nproc"
+      # the party's other ranks: no van role, they join the group only
+      for k in $(seq 1 $((nproc - 1))); do
+        env $NH_P $MESH_ENV GEOMX_MESH_PROC_ID=$k \
+          $WORKER_LAUNCH $module --data-slice-idx $slice $extra > "$LOG_DIR/mesh_w${slice}_p$k.log" 2>&1 &
+        HIPS_PIDS="$HIPS_PIDS $!"
+      done
+      MESH_ENV="$MESH_ENV GEOMX_MESH_PROC_ID=0"
+    fi
     if [ "$PPORT" = "$BPORT" ]; then
       # last worker runs in the foreground (reference pattern)
-      env $NH_P DMLC_ROLE=worker DMLC_PS_ROOT_URI=$PHOST DMLC_PS_ROOT_PORT=$PPORT \
+      env $NH_P $MESH_ENV DMLC_ROLE=worker DMLC_PS_ROOT_URI=$PHOST DMLC_PS_ROOT_PORT=$PPORT \
         DMLC_NUM_SERVER=1 DMLC_NUM_WORKER=1 DMLC_NUM_ALL_WORKER=2 \
         PYTHONUNBUFFERED=1 \
         $WORKER_LAUNCH $module --data-slice-idx $slice $extra
       rc=$?
     else
-      env $NH_P DMLC_ROLE=worker DMLC_PS_ROOT_URI=$PHOST DMLC_PS_ROOT_PORT=$PPORT \
+      env $NH_P $MESH_ENV DMLC_ROLE=worker DMLC_PS_ROOT_URI=$PHOST DMLC_PS_ROOT_PORT=$PPORT \
         DMLC_NUM_SERVER=1 DMLC_NUM_WORKER=1 DMLC_NUM_ALL_WORKER=2 \
         $WORKER_LAUNCH $module --data-slice-idx $slice $extra > "$LOG_DIR/mesh_w$slice.log" 2>&1 &
       HIPS_PIDS="$HIPS_PIDS $!"

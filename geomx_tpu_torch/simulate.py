@@ -75,9 +75,11 @@ class InProcessHiPS:
         if self.pms > 0 and int((extra_cfg or {}).get(
                 "mesh_num_processes", 0)) > 1:
             raise NotImplementedError(
-                "an in-process party mesh is one process; a party over "
-                "several processes is not ported yet (ROADMAP queue A "
-                "item 9)")
+                "an in-process topology runs its parties' ranks on threads "
+                "of one process, and threads of one process cannot be "
+                "several ranks of a process group; a party over several "
+                "processes runs as processes (scripts/hips_env.sh "
+                "MESH_PROCS)")
         self.ngs = num_global_servers
         # servers_per_party: an int (uniform) or a per-party list —
         # non-uniform topologies need cfg.num_parties for exact FSA

@@ -85,10 +85,14 @@ class DeviceResidentTrainer:
         if self._mesh is None:
             self.device = resolve_device(device)
         elif not isinstance(self._mesh, PartyMesh):
+            # the JAX trainer's mesh rounds raise on every non-global rank
+            # (geomx_tpu/trainer_device.py _place_batch), so its round
+            # over several processes never completes: refused up front,
+            # on every rank
             raise NotImplementedError(
-                "a party mesh over several devices or processes is not "
-                "ported yet (ROADMAP queue A item 9); the port's party "
-                "ranks share one device (parallel.mesh.PartyMesh)")
+                "DeviceResidentTrainer drives a party from one process "
+                "(parallel.mesh.PartyMesh); a party over several processes "
+                "trains through parallel.train_step.HierarchicalTrainer")
         else:
             self.device = self._mesh.device
             if device is not None and torch.device(device) != self.device:

@@ -252,10 +252,12 @@ def test_mixed_topology_matches_the_jax_package(sched, server, worker):
 
 
 def test_mesh_party_refused_up_front():
-    """A party mesh over several processes is not ported: refused before
-    any node starts (in-process mesh parties run; see
-    tests/test_torch_mesh_party.py)."""
-    with pytest.raises(NotImplementedError, match="item 9"):
+    """An in-process topology cannot hold a party over several processes
+    (its ranks would be threads of this one): refused before any node
+    starts. In-process mesh parties run (tests/test_torch_mesh_party.py);
+    a party over processes runs as processes
+    (tests/test_torch_multiproc.py)."""
+    with pytest.raises(NotImplementedError, match="threads of one process"):
         tsim.InProcessHiPS(num_parties=2, party_mesh_size=2,
                            extra_cfg={"mesh_num_processes": 2,
                                       "mesh_coordinator": "localhost:1"})

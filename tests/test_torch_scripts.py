@@ -22,7 +22,8 @@ ROOT = Path(__file__).resolve().parents[1]
 SCRIPTS = ROOT / "geomx_tpu_torch" / "scripts"
 RECIPES = ("vanilla_hips", "bsc", "fp16", "mpq", "hfa", "mixed_sync",
            "dcasgd", "p3", "dgt", "inter_ts", "intra_ts", "multi_gps",
-           "esync", "transformer_bsc", "mesh_hips", "chaos_matrix")
+           "esync", "transformer_bsc", "mesh_hips", "chaos_matrix",
+           "mesh_multihost")
 # the switches each recipe exports, as its JAX twin does
 SWITCHES = {"p3": "ENABLE_P3=1", "dgt": "ENABLE_DGT", "hfa":
             "MXNET_KVSTORE_USE_HFA=1", "inter_ts": "ENABLE_INTER_TS=1",

@@ -182,10 +182,11 @@ def test_unported_store_paths_raise():
     grad = lambda lv, X, y: (None, lv)  # noqa: E731
     # the pipelined round is ported: an overlapped async sparse store
     # gets its chunk plan; a mesh that is not a one-device party mesh
-    # (parallel.mesh.PartyMesh) still raises
+    # (parallel.mesh.PartyMesh) is refused, pointing at the trainer that
+    # runs a party over processes
     tr = DeviceResidentTrainer([np.zeros(4, np.float32)], Overlapped(),
                                grad, device="cpu")
     assert tr.pipelined and len(tr._chunks) == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="HierarchicalTrainer"):
         DeviceResidentTrainer([np.zeros(4, np.float32)], Meshed(), grad,
                               device="cpu")
