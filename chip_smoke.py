@@ -48,9 +48,9 @@ workers' parameters bit for bit. 4b is ``bench_transformer_bsc``: the
 of each flash kernel per step per worker), the ``step_timed`` split with
 the pipelined and the serial round, one profiled round, and the
 replicas bit for bit. Its variant puts BSC (threshold 0.01) on the
-global tier, as ``examples/cnn_bsc.py`` does: 4 counted rounds, their
-WAN bytes and ``step_timed`` wire beside the dense rounds', and the host
-spans of those rounds.
+global tier, as ``examples/cnn_bsc.py`` does: 1 counted round, its WAN
+bytes and ``step_timed`` wire beside the dense rounds', and the host
+spans of that round.
 
 Phase 5 runs the BASELINE.md feature configs over the same topology,
 each through its example's ``run_worker`` (the master's part first),
@@ -76,7 +76,7 @@ intra-party protocol probe beside phase 4a's wire, accuracies against
 their floors, img/s, WAN and mesh bytes per round (2bit at least 14x
 below none), the two_bit kernel's launches, the parties bit for bit. 6b
 is the 59M transformer as 2 parties x 2 ranks, 8 sequences per rank,
-through the 2-bit ring and BSC 0.01: 1 warm-up round, 4 counted
+through the 2-bit ring and BSC 0.01: 1 warm-up round, 1 counted
 ``step_timed`` rounds and a profiled one; launches of every kernel per
 round, WAN and mesh bytes, the device's busy share, round 1's loss
 against plain attention, the parties bit for bit.
@@ -183,6 +183,21 @@ exit code. On the CPU: ``phase11a(..., dev="cpu")`` and
 digest, dev="cpu")`` at a small ``MODEL`` given the losses and the
 digest of 3d's steps at that size on the CPU.
 
+Phase 12 runs right after phase 0, so that every later phase stands on
+a checked card: ``geomx_tpu_torch/tools/chip_sanity.py``'s five probes
+(the JAX package's ``tools/chip_sanity.py`` for the H100). Float32
+buffers holding denormal and NaN-payload bit patterns go to the card and
+back from pageable and pinned memory, blocking and ``non_blocking``; the
+same patterns made on the card go through ``cat``, ``index_select``,
+``where`` and the device trainer's pack; an fp32 matmul and convolution
+against a float64 numpy oracle under PyTorch's defaults, with TF32 on,
+with TF32 off and under the script's own settings (the ratios printed);
+a chain of 2048^3 bf16 matmuls timed by a synchronise and by CUDA events
+against a value fetch; the device trainer's BSC cycle for 25 rounds
+against its numpy oracle. Each probe's verdict is a line; a red probe,
+or more than ``PHASE12_LIMIT_S``, fails the run. On the CPU:
+``python -c "import chip_smoke as c; c.phase12('cpu')"``.
+
 Exits non-zero without a card, outside a checkout, or when any check
 fails. The line before the last is the kernel table as JSON; the last is
 ``{"ok": true, "device": {...}}``.
@@ -237,7 +252,7 @@ LENET = dict(batch=128, threshold=0.02, lr=0.05, rounds=200, timed=5,
 PARITY_TOL_BSC = 0.02       # of the 1.0 the dense run reaches on this data
 # phase 4b: bench.py bench_transformer_bsc's settings
 HIPS_TF = dict(threshold=0.01, lr=0.05, momentum=0.9, batches=4, rounds=10,
-               timed=2, alternations=2, bsc_rounds=4)
+               timed=1, alternations=1, bsc_rounds=1)
 # phase 5: the BASELINE.md feature configs through their examples'
 # run_worker (bench.py BATCH_PER_WORKER :52, ACC_ITERS :53, bench_nokv
 # :140, bench_hips :246, bench_hips_hfa :746, the tolerances :75-81)
@@ -252,7 +267,7 @@ PARITY_TOL_FSA = PARITY_TOL_HFA = 0.02
 # there, as the port's CPU rehearsal does at one torch thread) less
 # 0.02, since it and the port's rehearsal both fall below phase 4a's
 # 0.98; "2bit" (threshold 2e-4) at its CPU rehearsal's 0.4531 less 0.05
-MESH6 = dict(ranks=2, probe_reps=30, thr_rounds=20, tf_rounds=4,
+MESH6 = dict(ranks=2, probe_reps=30, thr_rounds=20, tf_rounds=1,
              lenet_2bit_threshold=2e-4, acc_none=0.0967 - 0.02,
              acc_2bit=0.4531 - 0.05, round1_tol=1e-4)
 JOIN_S = 900                # per topology: a hung worker fails the phase
@@ -317,7 +332,7 @@ PHASE9 = dict(policies=("", "fp16", "2bit", "mpq"), size_lower_bound=2048,
 # Then the float32 step's median over `time_reps` at `time_batch`. JAX_PARAMS: the JAX package's parameter
 # counts of the same names (jax.eval_shape of its get_model at 1,000
 # classes). 10b: examples/cnn.py's run_worker, --model resnet50 -dt
-# cifar10, 2 parties x 1 worker, batch 32, 10 rounds; a leg carries the
+# cifar10, 2 parties x 1 worker, batch 32, 3 rounds; a leg carries the
 # 161 leaves dense fp32, 4 x 23,520,842 bytes. 10c: the records path
 # (tests/test_image_pipeline.py:138's) on the card: 96 raw CIFAR-shaped
 # records, ResNet-18 at 3 classes, 12 Adam steps of 32.
@@ -331,7 +346,7 @@ JAX_PARAMS = {"resnet50": 25_557_032, "alexnet": 61_100_840,
               "lstm_lm": 388_584, "gru_lm": 355_816, "rnn_lm": 289_896}
 PHASE10 = dict(check_batch=2, time_batch=32, time_reps=10, seq=64,
                loss_tol=1e-4, grad_tol=1e-3, f64_tol=1e-5, whole_factor=4,
-               hips_rounds=10, hips_batch=32, resnet50_cifar_params=23_520_842,
+               hips_rounds=3, hips_batch=32, resnet50_cifar_params=23_520_842,
                records=96, record_epochs=4, record_batch=32)
 # phase 11: a party over several processes (torch.distributed, gloo).
 # 11a: run_mesh_multihost.sh at the JAX script's n with 2 and 4
@@ -345,6 +360,8 @@ PHASE10 = dict(check_batch=2, time_batch=32, time_reps=10, seq=64,
 # 5e-7). timeout: per topology, a hung rank fails the phase
 PHASE11 = dict(sizes=(2, 4), n=1 << 16, none_tol=1e-6, timeout=240, steps=3,
                loss_tol=1e-5)
+# phase 12: the card's self-check, run before phase 1
+PHASE12_LIMIT_S = 30
 TF8 = []     # extra train_transformer flags (a CPU rehearsal's tiny model)
 MOE8 = []    # extra train_moe flags
 
@@ -3949,6 +3966,57 @@ def phase11c(dev, accs7c, digest7c):
             for key in (*KERNELS, "two_bit")}
 
 
+def phase12(dev="cuda"):
+    """The card's self-check (``geomx_tpu_torch/tools/chip_sanity.py``):
+    bit-exact copies and bitcasts of the packed wire's patterns, fp32
+    matmul and convolution error by TF32 setting, honest blocking, and
+    the device trainer's BSC cycle against its numpy oracle. Each probe's
+    verdict on a line of its own; any red probe, or more than
+    PHASE12_LIMIT_S, fails the run."""
+    from geomx_tpu_torch.tools.chip_sanity import PROBES, run_chip_sanity
+
+    out = run_chip_sanity(dev)
+    mm, blk = out["matmul_precision"], out["blocking_honest"]
+    events = (None if blk["t_events_s"] is None
+              else blk["t_events_s"] * 1e3)
+    detail = {
+        "transfer_bitexact": f"modes {out['transfer_bitexact']['modes']}, "
+                             f"corrupted "
+                             f"{out['transfer_bitexact']['corrupted']}",
+        "bitcast_on_device": f"ops {out['bitcast_on_device']['checked']}, "
+                             f"corrupted "
+                             f"{out['bitcast_on_device']['corrupted']}",
+        "matmul_precision": "; ".join(
+            f"{op} err default {mm[f'{op}_err_default']:.3e} tf32 "
+            f"{mm[f'{op}_err_tf32']:.3e} exact {mm[f'{op}_err_exact']:.3e} "
+            f"process {mm[f'{op}_err_process']:.3e} (default / exact "
+            f"{mm[f'{op}_ratio']:.1f})" for op in ("matmul", "conv"))
+            + f"; the process runs under {mm['process_settings']}",
+        "blocking_honest": f"{blk['iters']} chained 2048^3 bf16 matmuls: "
+                           f"synchronize {blk['t_sync_s'] * 1e3:.3f} ms, "
+                           + ("events not measured, " if events is None
+                              else f"events {events:.3f} ms, ")
+                           + f"value fetch {blk['t_value_s'] * 1e3:.3f} ms, "
+                           f"implied {blk['implied_tflops']:.1f} TFLOP/s",
+        "bsc_oracle": f"{out['bsc_oracle']['rounds']} rounds, max drift "
+                      f"{out['bsc_oracle']['max_param_drift']:.3e}, finite "
+                      f"{out['bsc_oracle']['device_finite']}",
+    }
+    for name in PROBES:
+        verdict = "ok" if out[name]["ok"] else "RED"
+        print(f"[phase12] {name} {verdict}: {detail[name]}", flush=True)
+    print(f"[phase12] {out['device']}: {len(PROBES)} probes in "
+          f"{out['wall_s']:.1f} s", flush=True)
+    red = [name for name in PROBES if not out[name]["ok"]]
+    if red:
+        fail(f"phase12: red probe(s) {red}: "
+             f"{ {name: out[name] for name in red} }")
+    if out["wall_s"] > PHASE12_LIMIT_S:
+        fail(f"phase12: the probes took {out['wall_s']:.1f} s, over "
+             f"{PHASE12_LIMIT_S} s")
+    return out
+
+
 def main():
     try:
         import torch
@@ -4003,6 +4071,8 @@ def main():
         print(f"[time] {name} {now - clock[0]:.1f} s", flush=True)
         clock[0] = now
 
+    phase12()
+    lap("phase12")
     errs, times, library, dev, library_dev, bnd = phase1(torch, fa)
     d32 = phase1_d32(torch, fa)
     lap("phase1")

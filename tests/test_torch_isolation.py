@@ -65,6 +65,8 @@ def test_import_leaves_jax_out_of_the_process():
         "import geomx_tpu_torch.models.zoo\n"
         "import geomx_tpu_torch.models.rnn\n"
         "import geomx_tpu_torch.models.convert\n"
+        "import geomx_tpu_torch.tools.analyze\n"
+        "import geomx_tpu_torch.tools.chip_sanity\n"
         f"print(sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r}))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,

@@ -12,9 +12,16 @@ Tolerances. fp32: losses within 1e-5; parameters within 1e-5, except
 the key projection's bias, whose gradient is rounding noise (softmax is
 invariant to a per-row constant, and q.b_k is one): Adam normalises that
 noise to steps of about the learning rate either way, so those
-coordinates are held within 2 * steps * lr. bf16 (compute in bf16, the
-JAX side compiled without excess precision): losses and parameters
-within 3e-2.
+coordinates are held within 2 * steps * lr. In the MoE step, a
+coordinate whose gradient in the JAX run was non-zero and below
+``torch_parity_kit.NEAR_EPS`` in some step is held within steps * lr
+(``near_eps``): Adam's first step g / (|g| + eps) on such a gradient
+turns the two frameworks' rounding into a few percent of lr
+(``block0.moe.w_up[0, 26, 100]``'s first gradient is -1.30e-9 in JAX
+and -4.38e-10 in the port, with the same router assignment, so the step
+differs by 0.073 lr).
+bf16 (compute in bf16, the JAX side compiled without excess precision):
+losses and parameters within 3e-2.
 """
 
 import os
@@ -42,6 +49,7 @@ from geomx_tpu.parallel.ring_attention import (
     make_ring_attention as jax_ring)
 from geomx_tpu_torch.examples import train_moe, train_transformer
 from geomx_tpu_torch.models.convert import leaf_names
+from torch_parity_kit import assert_adam_leaves_close, near_eps
 
 ROOT = Path(__file__).resolve().parents[1]
 STEPS, LR = 3, 3e-4
@@ -55,7 +63,8 @@ DIMS = dict(vocab=64, dim=32, depth=2, heads=4)
 
 def _jax_steps(params, mesh, toks, grad_fn):
     """3 steps of the JAX examples' jitted AdamW step; ``grad_fn(p, t) ->
-    (loss, grads)``."""
+    (loss, grads)``. Returns the losses, the final leaves and each step's
+    gradient leaves."""
     with mesh:
         params = jax_sharding(mesh)(params)
         opt = optax.adamw(LR)
@@ -64,29 +73,39 @@ def _jax_steps(params, mesh, toks, grad_fn):
         def step(p, s, t):
             loss, grads = grad_fn(p, t)
             updates, s = opt.update(grads, s, p)
-            return optax.apply_updates(p, updates), s, loss
+            return optax.apply_updates(p, updates), s, loss, grads
 
         compiled = jax.jit(step, compiler_options={
             "xla_allow_excess_precision": False})
-        losses = []
+        losses, grads = [], []
         for _ in range(STEPS):
-            params, state, loss = compiled(params, state, toks)
+            params, state, loss, g = compiled(params, state, toks)
             losses.append(float(loss))
-    return losses, [np.asarray(l) for l in jax.tree_util.tree_leaves(params)]
+            grads.append([np.asarray(l)
+                          for l in jax.tree_util.tree_leaves(g)])
+    return (losses, [np.asarray(l) for l in jax.tree_util.tree_leaves(params)],
+            grads)
 
 
-def _check(names, tl, jl, tparams, jparams, dtype, dim):
+def _check(names, tl, jl, tparams, jparams, dtype, dim, jgrads=None):
+    """``jgrads`` (the JAX run's gradients) mark the near-epsilon
+    coordinates; without them every coordinate keeps 1e-5."""
     if dtype == "float32":
         np.testing.assert_allclose(tl, jl, atol=1e-5, rtol=1e-5)
-        for name, a, b in zip(names, tparams, jparams):
+        near = (near_eps(jgrads) if jgrads is not None
+                else [np.zeros(b.shape, bool) for b in jparams])
+        got, want, marks = [], [], []
+        for name, a, b, m in zip(names, tparams, jparams, near):
             a = a.detach().numpy()
             if name.endswith("qkv.bias"):
                 noise = slice(dim, 2 * dim)    # the key projection's bias
                 np.testing.assert_allclose(a[noise], b[noise], rtol=0,
                                            atol=2 * STEPS * LR, err_msg=name)
-                a, b = np.delete(a, noise), np.delete(b, noise)
-            np.testing.assert_allclose(a, b, atol=1e-5, rtol=1e-5,
-                                       err_msg=name)
+                a, b, m = (np.delete(x, noise) for x in (a, b, m))
+            got.append(a)
+            want.append(b)
+            marks.append(m)
+        assert_adam_leaves_close(got, want, marks, 1e-5, LR, STEPS, names)
     else:
         np.testing.assert_allclose(tl, jl, atol=3e-2, rtol=3e-2)
         for name, a, b in zip(names, tparams, jparams):
@@ -118,7 +137,7 @@ def test_train_transformer_step_matches_jax(dtype):
                           NamedSharding(mesh, P("dp", "sp")))
     grad_fn = jax_accumulate(
         lambda p, t: jax.value_and_grad(loss_fn)(p, t), 2)
-    jl, jparams = _jax_steps(init, mesh, toks, grad_fn)
+    jl, jparams, _ = _jax_steps(init, mesh, toks, grad_fn)
 
     args = train_transformer.parse_args(TF_FLAGS + ["--ranks", "8",
                                                     "--cpu"])
@@ -150,7 +169,8 @@ def test_train_moe_step_matches_jax():
 
     toks = jax.device_put(jnp.asarray(toks_np, jnp.int32),
                           NamedSharding(mesh, P("dp", None)))
-    jl, jparams = _jax_steps(init, mesh, toks, jax.value_and_grad(loss_fn))
+    jl, jparams, jgrads = _jax_steps(init, mesh, toks,
+                                     jax.value_and_grad(loss_fn))
 
     args = train_moe.parse_args(MOE_FLAGS + ["--ranks", "8", "--cpu"])
     run = train_moe.build(args, torch.device("cpu"), init_leaves=leaves0,
@@ -160,7 +180,7 @@ def test_train_moe_step_matches_jax():
     tl = [float(ce) + 0.01 * float(aux) for ce, aux in out]
     assert all(1.0 <= float(aux) < 4.0 for _, aux in out)
     _check(leaf_names(run["model"]), tl, jl, run["params"], jparams,
-           "float32", DIMS["dim"])
+           "float32", DIMS["dim"], jgrads)
 
 
 def _run(module, argv, timeout=120):

@@ -178,14 +178,17 @@ def near_eps(grads):
     return out
 
 
-def assert_adam_leaves_close(got, want, near, tol, lr, steps):
+def assert_adam_leaves_close(got, want, near, tol, lr, steps, names=None):
     """``got`` against ``want`` leaf by leaf: every coordinate within
     ``tol`` (atol = rtol), except those in ``near`` (see ``near_eps``),
     which may differ by what ``steps`` Adam steps can move a coordinate,
-    lr each, and by no more. No leaf is bounded as a whole."""
+    lr each, and by no more. No leaf is bounded as a whole. ``names``
+    label the leaves in a failure."""
     total = sum(int(m.size) for m in near)
     assert sum(int(m.sum()) for m in near) <= NEAR_EPS_SHARE * total
-    for g, r, m in zip(got, want, near):
-        np.testing.assert_allclose(g[~m], r[~m], atol=tol, rtol=tol)
+    for i, (g, r, m) in enumerate(zip(got, want, near)):
+        name = "" if names is None else names[i]
+        np.testing.assert_allclose(g[~m], r[~m], atol=tol, rtol=tol,
+                                   err_msg=name)
         np.testing.assert_allclose(g[m], r[m], rtol=0,
-                                   atol=max(tol, lr * steps))
+                                   atol=max(tol, lr * steps), err_msg=name)
