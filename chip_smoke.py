@@ -137,30 +137,30 @@ c.phase8b(torch, fa, 'cpu'); c.phase8c(torch, numpy, fa, 'cpu');
 c.phase8d(torch, numpy, 'cpu')"``.
 
 Phase 9 is the quantized combined wire (``GEOMX_WIRE_CODEC``) and the
-chaos layer. 9a runs the 59M decoder as 2 parties x 1 worker over a
-live ``InProcessHiPS`` in aggregator mode (``bench.py``
+chaos layer. 9a runs the 59M decoder as 2 parties x 1 worker over a live
+``InProcessHiPS`` in aggregator mode (``bench.py``
 ``_quant_wire_layout``), its gradient leaves pushed as tensors on the
 card through ``push_pull_async`` (P3 chunks of 4 MiB), SGD on the
 aggregate, under the policies "", fp16, 2bit and mpq in turn (1 warm-up
-and 3 counted rounds each): every counted round's aggregate on both
-workers against a host replay of the four legs (worker push, WAN
-forward, global response, party response; ``tests/test_quant_wire.py``'s
-oracle, each element on its chunk's codec, the 2-bit residuals carried
-over the rounds), the replicas bit for bit, the two_bit kernel launched
-once per 2-bit entry of each push, WAN bytes per codec against the
-payload counted from the shapes, 2bit at least 4x below raw, falling
-losses, and the split of a round (compute, encode and D2H, wire,
-apply). 9b is ``_quant_wire_parity`` with the gradients on the card:
-the 2-bit wire's final loss within 0.05 of the raw wire's. 9c runs
-``run_chaos_matrix.sh``'s quant-wire case (beside the same recipe with
-an empty plan) and its server-kill case as separate processes at once:
-every role exits 0, every worker completes in lockstep, no sanitizer
-marker. To rehearse on the CPU: ``python -c "import numpy, torch,
-chip_smoke as c; from geomx_tpu_torch.ops import flash_attention as fa,
-two_bit as tb; c.MODEL = dict(dim=64, depth=2, heads=4, vocab=256,
-seq_len=64); c.BATCH = 2; c.PHASE9['slice_bytes'] = 16384;
-c.phase9a(torch, numpy, fa, tb, None, 'cpu'); c.phase9b(torch, numpy,
-tb, 'cpu'); c.phase9c('cpu')"`` (~45 s).
+and 2 counted rounds each; 3 before phase 13 was added): every counted
+round's aggregate on both workers against a host replay of the four legs
+(worker push, WAN forward, global response, party response;
+``tests/test_quant_wire.py``'s oracle, each element on its chunk's
+codec, the 2-bit residuals carried over the rounds), the replicas bit
+for bit, the two_bit kernel launched once per 2-bit entry of each push,
+WAN bytes per codec against the payload counted from the shapes, 2bit at
+least 4x below raw, falling losses, and the split of a round (compute,
+encode and D2H, wire, apply). 9b is ``_quant_wire_parity`` with the
+gradients on the card: the 2-bit wire's final loss within 0.05 of the
+raw wire's. 9c runs ``run_chaos_matrix.sh``'s quant-wire case (beside
+the same recipe with an empty plan) and its server-kill case as separate
+processes at once: every role exits 0, every worker completes in
+lockstep, no sanitizer marker. To rehearse on the CPU: ``python -c
+"import numpy, torch, chip_smoke as c; from geomx_tpu_torch.ops import
+flash_attention as fa, two_bit as tb; c.MODEL = dict(dim=64, depth=2,
+heads=4, vocab=256, seq_len=64); c.BATCH = 2; c.PHASE9['slice_bytes'] =
+16384; c.phase9a(torch, numpy, fa, tb, None, 'cpu'); c.phase9b(torch,
+numpy, tb, 'cpu'); c.phase9c('cpu')"`` (~45 s).
 
 Phase 11 is a party over several processes (``torch.distributed``,
 gloo; each rank's launches counted in its own process from zero). 11a
@@ -197,6 +197,37 @@ against a value fetch; the device trainer's BSC cycle for 25 rounds
 against its numpy oracle. Each probe's verdict is a line; a red probe,
 or more than ``PHASE12_LIMIT_S``, fails the run. On the CPU:
 ``python -c "import chip_smoke as c; c.phase12('cpu')"``.
+
+Phase 13 runs the repo's measurement tools over the port
+(``geomx_tpu_torch/tools/*_bench.py``), each line of theirs printed
+again as a ``[phase13]`` line. 13a is ``attention_bench`` at its defaults
+(B 4, H 8, D 64, T 512-4096) and at the 59M decoder's attention (B 8, T
+512): per row 42 forward, 21 dQ and 21 dK/dV launches, flash within 2e-2
+of dense attention in bf16, finite positive times, and SDPA timed by the
+same chain as a yardstick; on the row's inputs flash's out, dq, dk and
+dv against fp32 dense attention, each row's error within 2e-2 (out) or
+5e-2 of the larger of its max and a tenth of the tensor's. 13b is
+``compress_bench`` at its sizes and at the 59M decoder's whole gradient
+(repeat 3): the ``two_bit`` launches of each size, and on the tool's
+first outputs (from zero state) the card's fp16 bytes, 2-bit bytes and
+residual equal to the host codec's, its BSC selection the exact top-k,
+and every index where it and the host codec's differ where the host's
+sampled boundary and its cap of k put it. 13c is ``ps_bench``'s
+three sizes (2 s each) and ``server_bench``'s 1-8 threads (1 s each),
+every rate positive. 13d is ``wire_bench``: per-key against batched at
+both layouts (10 / 2 rounds), the sparse wire, the overlap (3 rounds)
+at the transformer layout under "", fp16, 2bit and mpq at 128 KiB and 4
+MiB slices with the host profiler's spans of each, and the loss bench's
+five policies on ``wan2_50ms_100mbps.json`` (the raw policy must reach its
+target). 13e is ``overlay_bench`` at 16 parties on ``hetero16.json``,
+direct and overlay bit-exact. The lap is held to 180 s. To rehearse on
+the CPU at small sizes: ``python -c "import chip_smoke as c, torch,
+numpy as np; from geomx_tpu_torch.ops import flash_attention as fa,
+two_bit as tb; c.PHASE13.update(attn=((1, 2, 16, (128,)),),
+compress_sizes=(4096,), big=65536, ps_s=0.3, server_s=0.2,
+rounds={'cnn': 2, 'transformer': 1}, overlap_rounds=1,
+overlay=dict(parties=2, rounds=1)); c.phase13(torch, np, fa, tb,
+'cpu')"`` (~40 s).
 
 Exits non-zero without a card, outside a checkout, or when any check
 fails. The line before the last is the kernel table as JSON; the last is
@@ -304,7 +335,7 @@ PHASE8 = dict(iters=20, ckpt_every=10, curve_tol=3e-3, moe_tol=1e-6,
 # WAN legs (phase 6a's LeNet threshold: at the default 0.5 they would
 # code nothing of LeNet's gradients and the model would never move)
 PHASE9 = dict(policies=("", "fp16", "2bit", "mpq"), size_lower_bound=2048,
-              slice_bytes=4 << 20, warm=1, rounds=3, threshold=1e-4, lr=0.5,
+              slice_bytes=4 << 20, warm=1, rounds=2, threshold=1e-4, lr=0.5,
               parity=dict(d=256, n=64, rounds=200, threshold=0.1, lr=0.05),
               parity_tol=0.05, matrix_iters=10, timeout_9c=300,
               matrix_threshold=2e-4)
@@ -362,6 +393,33 @@ PHASE11 = dict(sizes=(2, 4), n=1 << 16, none_tol=1e-6, timeout=240, steps=3,
                loss_tol=1e-5)
 # phase 12: the card's self-check, run before phase 1
 PHASE12_LIMIT_S = 30
+# phase 13: the measurement tools (geomx_tpu_torch/tools/*_bench.py). 13a:
+# attention_bench at its defaults (B 4, H 8, D 64, T 512-4096) and at the
+# 59M decoder's attention (B 8, H 8, D 64, T 512), `attn_iters` calls per
+# timed chain, flash within phase 1's bf16 tolerance of dense attention,
+# and flash's out, dq, dk, dv on the row's inputs against fp32 dense
+# attention within `attn_tol` by `row_close` (each row against the larger
+# of its own max and ROW_FLOOR of the tensor's; the floor leaves room for
+# the kernels' bf16 rounding of dS on dQ's first rows, which cancel).
+# 13b: compress_bench at its defaults and at the 59M decoder's whole
+# gradient (2 x 29,534,720), `big_repeat` timed calls there; the checks
+# read the tool's own first outputs. 13c:
+# ps_bench's sizes and server_bench's thread counts, `ps_s` and
+# `server_s` seconds each. 13d: wire_bench, `rounds` per layout, its
+# overlap at the transformer layout under each wire codec and slice size,
+# its loss bench on the two-party WAN plan. 13e: overlay_bench at 16
+# parties on hetero16. The lap is held to `limit_s`.
+ROW_FLOOR = 0.1
+PHASE13 = dict(attn=((4, 8, 64, (512, 1024, 2048, 4096)), (8, 8, 64, (512,))),
+               attn_iters=20, attn_tol=(2e-2, 5e-2, 5e-2, 5e-2),
+               compress_sizes=(262_144, 1_048_576, 8_388_608),
+               big=2 * 29_534_720, big_repeat=3, ps_s=2.0, server_s=1.0,
+               rounds={"cnn": 10, "transformer": 2}, overlap_rounds=3,
+               codecs=("", "fp16", "2bit", "mpq"),
+               slices=(131_072, 4_194_304),
+               loss=dict(parties=2, size=65536, target=3e-2, max_rounds=20,
+                         shape="wan2_50ms_100mbps.json"),
+               overlay=dict(parties=16, rounds=1), limit_s=180)
 TF8 = []     # extra train_transformer flags (a CPU rehearsal's tiny model)
 MOE8 = []    # extra train_moe flags
 
@@ -1319,6 +1377,17 @@ def phase4a(torch, np, fa, tb):
             "step_timed": [medians(res[w]["timed"]) for w in (0, 1)]}
 
 
+def host_spans(profiler, rounds=1, top=10):
+    """The host profiler's ``top`` largest aggregate spans, ms per round
+    (thread-ms summed over every role's threads), digits of a name folded
+    into N (key and chunk numbers merged)."""
+    spans = {}
+    for name, us in profiler.aggregate_stats().items():
+        name = "".join("N" if c.isdigit() else c for c in name)
+        spans[name] = spans.get(name, 0.0) + us / 1e3 / rounds
+    return sorted(spans.items(), key=lambda kv: -kv[1])[:top]
+
+
 def phase4b(torch, np, fa, tb):
     """The 59M transformer over the same live HiPS (bench_transformer_bsc's
     settings): losses, launches, the step_timed split with the pipelined
@@ -1409,11 +1478,7 @@ def phase4b(torch, np, fa, tb):
             prof["wall"] = (time.perf_counter() - t) * 1e3
         prof["p"] = p
         prof["wan"] = telemetry.wan_bytes() - wan0
-        spans = {}
-        for name, us in hostprof.aggregate_stats().items():
-            name = "".join("N" if c.isdigit() else c for c in name)
-            spans[name] = spans.get(name, 0.0) + us / 1e3
-        prof["host"] = sorted(spans.items(), key=lambda kv: -kv[1])[:10]
+        prof["host"] = host_spans(hostprof)
         hostprof.reset()
 
     run_hips(worker, init_keys(np, leaves0), "phase4b",
@@ -1491,7 +1556,7 @@ def phase4b_bsc(torch, np, dense, dev="cuda"):
         **MODEL, compute_dtype=torch.bfloat16, device=dev, attn="auto")
     warm = threading.Lock()
     bar = threading.Barrier(2)
-    res, wan, spans = {}, {}, {}
+    res, wan, spans = {}, {}, []
 
     def master(kv):
         kv.set_gradient_compression({"type": "bsc",
@@ -1524,9 +1589,7 @@ def phase4b_bsc(torch, np, dense, dev="cuda"):
         if w == 0:
             hostprof.set_state("stop")
             wan[1] = telemetry.wan_bytes()
-            for name, us in hostprof.aggregate_stats().items():
-                name = "".join("N" if c.isdigit() else c for c in name)
-                spans[name] = spans.get(name, 0.0) + us / 1e3
+            spans.extend(host_spans(hostprof))
             hostprof.reset()
         res[w] = dict(losses=[first] + [t[0] for t in timed],
                       phases=[t[1] for t in timed], leaves=tr.leaves)
@@ -1544,10 +1607,9 @@ def phase4b_bsc(torch, np, dense, dev="cuda"):
         print(f"[phase4b-bsc] worker {w} losses {res[w]['losses']}; "
               f"step_timed medians (ms) {med}; wire per round {wires} "
               f"(dense rounds' median {dense['wire_ms'][w]:.3f})", flush=True)
-    top = sorted(spans.items(), key=lambda kv: -kv[1])[:10]
     print(f"[phase4b-bsc] host spans of the {R} rounds (thread-ms summed "
           "over every role's threads, key and chunk numbers merged): "
-          + ", ".join(f"{k} {v:.1f}" for k, v in top), flush=True)
+          + ", ".join(f"{k} {v:.1f}" for k, v in spans), flush=True)
     for w in (0, 1):
         if not all(math.isfinite(x) for x in res[w]["losses"]):
             fail(f"phase4b-bsc: worker {w} non-finite loss "
@@ -2803,6 +2865,28 @@ def rel_close(got, want, tol):
     return err, scale, err <= tol * scale
 
 
+def row_close(got, want, tol, floor=ROW_FLOOR):
+    """(worst ratio, ok): each row's (last axis) max abs error over the
+    larger of that row's max |want| and ``floor`` x the tensor's, within
+    ``tol``. Against one max over the tensor, late rows of causal
+    attention (|o| near T^-1/2) would pass with any error; the floor
+    keeps rows that cancel to near zero (dQ's first queries) from
+    reading bf16 rounding as a fault."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().amax(-1)
+    scale = want.abs().amax(-1).clamp_min(floor * want.abs().max().item())
+    ratio = (err / scale).max().item()
+    return ratio, ratio <= tol
+
+
+def fwd_bwd(torch, fn, qkv, do, dtype):
+    """[out, dq, dk, dv] of ``fn`` on ``qkv`` cast to ``dtype``, the
+    backward from the cotangent ``do``."""
+    xs = [x.to(dtype).requires_grad_() for x in qkv]
+    out = fn(*xs)
+    return [out.detach()] + list(torch.autograd.grad(out, xs, do.to(dtype)))
+
+
 def phase8b(torch, fa, dev="cuda"):
     """Ring attention where it matters: B 2, H 8, D 32, T 4096 over sp 4,
     bf16, causal. Ring attention's and the flash kernels' forward and
@@ -2826,16 +2910,10 @@ def phase8b(torch, fa, dev="cuda"):
     def dense32(q, k, v):
         return dense_attention(q, k, v, causal=True)
 
-    def fwd_bwd(fn, dtype):
-        xs = [x.to(dtype).requires_grad_() for x in (q, k, v)]
-        out = fn(*xs)
-        return [out.detach()] + list(torch.autograd.grad(out, xs,
-                                                         do.to(dtype)))
-
-    ref = fwd_bwd(dense32, torch.float32)
+    ref = fwd_bwd(torch, dense32, (q, k, v), do, torch.float32)
     times = {}
     for name, fn in (("ring", ring), ("flash", flash)):
-        got = fwd_bwd(fn, torch.bfloat16)
+        got = fwd_bwd(torch, fn, (q, k, v), do, torch.bfloat16)
         for what, a, b, tol in zip(("out", "dq", "dk", "dv"), got, ref,
                                    PHASE8["ring_tol"]):
             err, scale, ok = rel_close(a, b, tol)
@@ -4017,6 +4095,306 @@ def phase12(dev="cuda"):
     return out
 
 
+def tool_lines(fn, *args, **kw):
+    """``fn(*args, **kw)``, each line it prints printed again as a
+    ``[phase13]`` line (a tool's bare JSON rows would otherwise stand
+    beside the script's own JSON lines); returns what ``fn`` returned."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            return fn(*args, **kw)
+    finally:
+        for line in buf.getvalue().splitlines():
+            print(f"[phase13] {line}", flush=True)
+
+
+def launched(counters, fn, *args, **kw):
+    """(what ``fn(*args, **kw)`` returned, the launches it made by kernel
+    key of ``counters``)."""
+    before = {k: n for c in counters for k, n in c.items()}
+    out = fn(*args, **kw)
+    return out, {k: n - before[k] for c in counters for k, n in c.items()}
+
+
+def add_to(total, counts):
+    for k, n in counts.items():
+        total[k] = total.get(k, 0) + n
+
+
+def phase13a(torch, fa, dev="cuda"):
+    """``attention_bench``'s rows at its defaults and at the 59M decoder's
+    attention: per row the launches of each flash kernel (a timed chain
+    of ``attn_iters`` calls after one warm-up call, forward then
+    forward+backward), finite positive times, and SDPA timed by the same
+    chain as a yardstick. On the row's own inputs and a seeded
+    cotangent, flash's output within phase 1's bf16 tolerance of bf16
+    dense attention's, and its out, dq, dk and dv against fp32 dense
+    attention by ``row_close``. Returns the launches."""
+    from geomx_tpu_torch.models.transformer import dense_attention
+    from geomx_tpu_torch.tools import attention_bench as ab
+
+    F = torch.nn.functional
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True).transpose(1, 2)
+
+    it = PHASE13["attn_iters"]
+    on_card = torch.device(dev).type == "cuda"
+    want = ({"fwd": 2 * (it + 1), "dq": it + 1, "dkv": it + 1} if on_card
+            else dict.fromkeys(fa.LAUNCHES, 0))
+    total = {}
+    for B, H, D, seqs in PHASE13["attn"]:
+        for T in seqs:
+            row, n = launched([fa.LAUNCHES], ab.bench_row, T, B, H, D, dev,
+                              it)
+            add_to(total, n)
+            q, k, v = ab.inputs(B, T, H, D, dev)
+            do = torch.randn(q.shape, generator=torch.Generator().manual_seed(
+                3)).to(device=dev, dtype=q.dtype)
+            # fwd_bwd marks a tensor of its dtype as requiring grad:
+            # detached views keep q, k, v free of it for SDPA's chain
+            got = fwd_bwd(torch, fa.flash_attention,
+                          [x.detach() for x in (q, k, v)], do, torch.bfloat16)
+            err = float((got[0].float()
+                         - dense_attention(q, k, v).float()).abs().max())
+            ref = fwd_bwd(torch, dense_attention, (q, k, v), do,
+                          torch.float32)
+            rows = {w: row_close(a, b, tol) for w, a, b, tol in zip(
+                ("out", "dq", "dk", "dv"), got, ref, PHASE13["attn_tol"])}
+            del ref
+            lib = {"sdpa_fwd_ms": ab._time(sdpa, q, k, v, it),
+                   "sdpa_fwdbwd_ms": ab._time(ab._grad(sdpa), q, k, v, it)}
+            print(f"[phase13] attention {json.dumps(row)}; SDPA (yardstick) "
+                  f"fwd {lib['sdpa_fwd_ms']:.4f} ms, fwd+bwd "
+                  f"{lib['sdpa_fwdbwd_ms']:.4f} ms; flash - dense max abs "
+                  f"{err:.3e}; against fp32 dense, worst row error over "
+                  f"max(row max, {ROW_FLOOR} x tensor max) "
+                  + ", ".join(f"{w} {r:.4f}" for w, (r, _ok) in rows.items())
+                  + f"; launches {n}", flush=True)
+            if n != want:
+                fail(f"phase13a T {T}: launches {n}, expected {want}")
+            if not err <= TOL["bfloat16"]:
+                fail(f"phase13a T {T}: flash is {err} from dense attention, "
+                     f"over {TOL['bfloat16']}")
+            bad = {w: r for (w, (r, ok)), t in zip(rows.items(), got)
+                   if not (ok and bool(torch.isfinite(t).all()))}
+            if bad:
+                fail(f"phase13a T {T}: flash against fp32 dense attention "
+                     f"beyond {PHASE13['attn_tol']} (worst row ratios): "
+                     f"{bad}")
+            times = [row[k] for k in ("dense_fwd_ms", "flash_fwd_ms",
+                                      "dense_fwdbwd_ms", "flash_fwdbwd_ms")]
+            if not all(math.isfinite(t) and t > 0 for t in times):
+                fail(f"phase13a T {T}: times {times}")
+    return total
+
+
+def bsc_divergence(np, mag, hidx, cidx, boundary, kth):
+    """Where the host codec's BSC selection ``hidx`` and the card's
+    exact top-k ``cidx`` of magnitudes ``mag`` differ, and whether the
+    host's rule accounts for each difference. The host takes the first
+    ``k`` indices, in index order, whose magnitude reaches its sampled
+    ``boundary``: an index in its set only lies between the boundary and
+    the ``kth`` largest magnitude; one in the card's only either falls
+    short of the boundary or, where the host's count reached k, lies
+    after the host's last index. Returns (host only, card only,
+    accounted for)."""
+    host_only = np.setdiff1d(hidx, cidx)
+    card_only = np.setdiff1d(cidx, hidx)
+    capped = hidx.size == cidx.size and card_only > hidx.max()
+    ok = (np.all((mag[host_only] >= boundary) & (mag[host_only] <= kth))
+          and np.all((mag[card_only] < boundary) | capped))
+    return host_only.size, card_only.size, bool(ok)
+
+
+def phase13b(torch, np, tb, dev="cuda"):
+    """``compress_bench``'s rows at its defaults and at the 59M decoder's
+    whole gradient: the ``two_bit`` launches of each timed size (one
+    warm-up and ``repeat`` calls), and at every size, on the tool's own
+    first outputs (one step from zero state), the card's fp16 cast and
+    2-bit bytes and residual against the host codec's bit for bit, and
+    its BSC selection against the exact top-k of the same values: the
+    same k, every value whose magnitude is above the k-th's selected,
+    only values that reach it selected (``torch.topk`` may take any of a
+    tie at the k-th), the values equal. The host BSC codec picks from a
+    sampled boundary; its set against the card's is printed, and each
+    index in one only must lie where the host's rule puts it
+    (``bsc_divergence``). Returns the launches."""
+    from geomx_tpu_torch import compression as host
+    from geomx_tpu_torch.tools import compress_bench as cb
+
+    on_card = torch.device(dev).type == "cuda"
+    threshold = 0.01
+    total = {}
+    runs = [(n, 5) for n in PHASE13["compress_sizes"]]
+    runs.append((PHASE13["big"], PHASE13["big_repeat"]))
+    for n, repeat in runs:
+        keep = {}
+        res, got = launched([tb.LAUNCHES], cb.run_compress_bench, [n],
+                            threshold, repeat, dev, keep)
+        add_to(total, got)
+        print(f"[phase13] compress {json.dumps(res[0])}; launches {got}",
+              flush=True)
+        if got["two_bit"] != (repeat + 1 if on_card else 0):
+            fail(f"phase13b size {n}: two_bit launches {got}")
+        o = keep.pop(n)
+        grad = o["grad"]
+        if not np.array_equal(o["fp16_device"].view(np.uint16),
+                              o["fp16_host"].view(np.uint16)):
+            fail(f"phase13b size {n}: fp16 bytes differ from numpy's")
+        (packed, res_d), (hpacked, hres) = o["2bit_device"], o["2bit_host"]
+        if not (np.array_equal(packed, hpacked)
+                and np.array_equal(res_d.view(np.uint32),
+                                   hres.view(np.uint32))):
+            fail(f"phase13b size {n}: 2-bit bytes or residual differ from "
+                 f"the host codec's")
+        vals, idx = o["bsc_device"]
+        idx = idx.astype(np.int64)
+        hidx = o["bsc_host"][1].astype(np.int64)
+        k = max(int(n * threshold), 1)
+        mag = np.abs(grad)
+        kth = np.partition(mag, n - k)[n - k]
+        above = np.flatnonzero(mag > kth)
+        ok = (idx.size == k == np.unique(idx).size
+              and np.all(mag[idx] >= kth)
+              and np.isin(above, idx).all()
+              and np.array_equal(vals.view(np.uint32),
+                                 grad[idx].view(np.uint32)))
+        boundary = host.bsc_sample_boundary(grad, threshold,
+                                            np.random.default_rng(42))
+        h_only, c_only, why = bsc_divergence(np, mag, hidx, idx, boundary,
+                                             kth)
+        print(f"[phase13] compress size {n}: fp16 and 2-bit (bytes, "
+              f"residual) equal the host codec's; BSC k {k}, {above.size} "
+              f"above the k-th magnitude {kth:.6f}, the card's selection "
+              f"{'is' if ok else 'is NOT'} the exact top-k; the host "
+              f"codec's boundary {boundary:.6f} (0.5% sample) selected "
+              f"{hidx.size}: {h_only} in the host's set only, {c_only} in "
+              f"the card's only, "
+              f"{'all' if why else 'NOT all'} where the host's boundary "
+              f"and its cap of k put them", flush=True)
+        if not ok:
+            fail(f"phase13b size {n}: BSC selection is not the exact top-k")
+        if not why:
+            fail(f"phase13b size {n}: the card's and the host codec's BSC "
+                 f"sets differ where the host's boundary does not account "
+                 f"for it")
+    return total
+
+
+def phase13c(dev="cuda"):
+    """``ps_bench``'s sizes for ``ps_s`` seconds each and
+    ``server_bench``'s thread counts for ``server_s`` each: every rate
+    positive."""
+    from geomx_tpu_torch.tools import ps_bench, server_bench
+
+    ps = []
+    for n in ps_bench.SIZES:
+        ps.append(ps_bench.bench_size(n, PHASE13["ps_s"], dev))
+        print(f"[phase13] ps {json.dumps(ps[-1])}", flush=True)
+    srv = tool_lines(server_bench.sweep, PHASE13["server_s"], dev)
+    bad = [r for r in ps if not r["rounds_per_s"] > 0] \
+        + [r for r in srv if not r["rounds_per_s"] > 0]
+    if bad:
+        fail(f"phase13c: rates not positive: {bad}")
+
+
+def phase13d(tb, dev="cuda"):
+    """``wire_bench``: per-key against batched at both layouts, the
+    sparse wire at the cnn layout, the overlap at the transformer layout
+    under each wire codec and slice size (with the host profiler's spans
+    of each, serial and pipelined rounds together), and the loss bench's
+    five policies on the two-party WAN plan, where the raw policy must
+    reach its target. Returns the launches."""
+    from geomx_tpu_torch import profiler
+    from geomx_tpu_torch.tools import wire_bench as wb
+    from geomx_tpu_torch.tools.chaos_sim import SHAPES
+
+    cpu = ["--cpu"] if dev == "cpu" else []
+    total = {}
+    for layout, rounds in PHASE13["rounds"].items():
+        tool_lines(wb.main, ["--layout", layout, "--rounds", str(rounds)]
+                   + cpu)
+    tool_lines(wb.main, ["--sparse", "--rounds",
+                         str(PHASE13["rounds"]["cnn"])] + cpu)
+    shapes = wb.layout_shapes("transformer")
+    R = PHASE13["overlap_rounds"]
+    for sb in PHASE13["slices"]:
+        for codec in PHASE13["codecs"]:
+            profiler.reset()
+            profiler.set_config(aggregate_stats=True)
+            profiler.set_state("run")
+            try:
+                (serial, piped, chunks), n = launched(
+                    [tb.LAUNCHES], wb.run_overlap, shapes, R, sb,
+                    {"wire_codec": codec} if codec else None, "", dev)
+            finally:
+                profiler.set_state("stop")
+            spans = host_spans(profiler, 2 * R, top=8)
+            profiler.reset()
+            add_to(total, n)
+            row = {"codec": codec or "raw", "slice_bytes": sb,
+                   "chunks": chunks, "serial_ms_per_round": round(serial, 2),
+                   "pipelined_ms_per_round": round(piped, 2),
+                   "two_bit_launches": n["two_bit"]}
+            print(f"[phase13] overlap transformer {json.dumps(row)}",
+                  flush=True)
+            print(f"[phase13]   host spans, ms per round (serial and "
+                  f"pipelined rounds together): "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in spans),
+                  flush=True)
+    L = PHASE13["loss"]
+    extra = {"shape_plan": "@" + os.path.join(SHAPES, L["shape"]),
+             "shape_seed": -1}
+    loss = tool_lines(wb.loss_bench, L["parties"], L["size"], L["target"],
+                      L["max_rounds"], extra, 2, wb.LOSS_POLICIES, dev)
+    if loss["raw"]["rounds_to_target"] is None:
+        fail(f"phase13d: the raw policy did not reach {L['target']} in "
+             f"{L['max_rounds']} rounds: {loss['raw']}")
+    return total
+
+
+def phase13e(dev="cuda"):
+    """``overlay_bench`` at 16 parties on hetero16, 1 round: direct and
+    overlay weights bit-exact (the tool raises otherwise)."""
+    from geomx_tpu_torch.tools import overlay_bench as ob
+
+    O = PHASE13["overlay"]
+    cpu = ["--cpu"] if dev == "cpu" else []
+    tool_lines(ob.main, ["--parties", str(O["parties"]), "--rounds",
+                         str(O["rounds"])] + cpu)
+
+
+def phase13(torch, np, fa, tb, dev="cuda"):
+    """The repo's measurement tools over the port (13a-13e); the lap is
+    held to ``limit_s``. Returns the launches of each kernel key."""
+    t0 = time.perf_counter()
+    total, laps = {}, {}
+
+    def sub(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        laps[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    add_to(total, sub("13a", phase13a, torch, fa, dev))
+    add_to(total, sub("13b", phase13b, torch, np, tb, dev))
+    sub("13c", phase13c, dev)
+    add_to(total, sub("13d", phase13d, tb, dev))
+    sub("13e", phase13e, dev)
+    lap = time.perf_counter() - t0
+    print(f"[phase13] the six tools in {lap:.1f} s ({laps}); kernel "
+          f"launches {total}", flush=True)
+    if lap > PHASE13["limit_s"]:
+        fail(f"phase13: {lap:.1f} s, over {PHASE13['limit_s']} s")
+    return total
+
+
 def main():
     try:
         import torch
@@ -4138,6 +4516,10 @@ def main():
     lap("phase11b")
     launches11c = phase11c("cuda", accs7c, digest7c)
     lap("phase11c")
+    # phase 13, the measurement tools: launches counted from the tools'
+    # own runs, not from the checks beside them
+    launches13 = phase13(torch, np, fa, tb)
+    lap("phase13")
 
     table = [{
         "name": name, "route": "cuda", "source": SOURCE, "replaces": where,
@@ -4159,7 +4541,7 @@ def main():
             "10": launches10[key],
             "11b_per_process_step": [[c[key] for c in rank]
                                      for rank in launches11b],
-            "11c": launches11c[key]},
+            "11c": launches11c[key], "13": launches13[key]},
         "d32": d32[key],
     } for key, (name, where, kernel) in KERNELS.items()]
     table.append({
@@ -4182,7 +4564,7 @@ def main():
             "11a_per_process": {f"P{P}": c for P, c in launches11a.items()},
             "11b_per_process_step": [[c["two_bit"] for c in rank]
                                      for rank in launches11b],
-            "11c": launches11c["two_bit"]}})
+            "11c": launches11c["two_bit"], "13": launches13["two_bit"]}})
     print(card, flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

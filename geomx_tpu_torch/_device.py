@@ -6,15 +6,15 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` means the CUDA card, and raises when there is none; the
-    CPU runs only when the caller names it (``device="cpu"``)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device available; pass device='cpu' (or --cpu) "
-                "to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+    """``None`` means the CUDA card; ``None`` and a CUDA device both raise
+    when there is no card. The CPU runs only when the caller names it
+    (``device="cpu"``)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device available; pass device='cpu' (or --cpu) "
+            "to run on the CPU")
+    return dev
 
 
 def exact_cudnn() -> None:

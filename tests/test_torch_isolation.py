@@ -67,6 +67,12 @@ def test_import_leaves_jax_out_of_the_process():
         "import geomx_tpu_torch.models.convert\n"
         "import geomx_tpu_torch.tools.analyze\n"
         "import geomx_tpu_torch.tools.chip_sanity\n"
+        "import geomx_tpu_torch.tools.compress_bench\n"
+        "import geomx_tpu_torch.tools.attention_bench\n"
+        "import geomx_tpu_torch.tools.ps_bench\n"
+        "import geomx_tpu_torch.tools.server_bench\n"
+        "import geomx_tpu_torch.tools.wire_bench\n"
+        "import geomx_tpu_torch.tools.overlay_bench\n"
         f"print(sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r}))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
